@@ -47,6 +47,11 @@ SIGNATURES = {
     # align_corners, stream
     "launch_sample_patches": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
                               _I, _I, _I, _P],
+    # buf, buf_rows, pitch, lafs, level, row_off, heights, widths, n_levels,
+    # lin (host, ps), g (n, ps, ps), grad_buf (or null), grad_lafs (or
+    # null), n, ps, align_corners, stream
+    "launch_sample_patches_bwd": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+                                  _P, _P, _P, _I, _I, _I, _P],
 }
 
 

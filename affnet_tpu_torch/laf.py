@@ -1,4 +1,5 @@
-"""Local Affine Frame (LAF) algebra — the pieces the extraction path uses.
+"""Local Affine Frame (LAF) algebra — the pieces the extraction and training
+paths use.
 
 A LAF is a ``(..., 2, 3)`` tensor ``[A | t]``; inside the pipeline LAFs live
 in normalized image coordinates (``A`` divided by ``min(h, w)``, ``t`` by
@@ -29,7 +30,10 @@ def eig2x2_vals(A: Tensor) -> Tuple[Tensor, Tensor]:
 
 
 def rectify_up_is_up(A: Tensor) -> Tensor:
-    """Canonicalize (..., 2, 2) so 'up stays up': zero a12, keep |det|."""
+    """Canonicalize (..., 2, 2) so 'up stays up': zero a12, keep |det|.
+    The 1e-10 under the root and the order of the divisions are the JAX
+    package's, so autograd differentiates the same expression (AffNet's
+    head during training)."""
     det = torch.sqrt(torch.abs(A[..., 0, 0] * A[..., 1, 1]
                                - A[..., 1, 0] * A[..., 0, 1] + 1e-10))
     b2a2 = torch.sqrt(A[..., 0, 1] * A[..., 0, 1]
@@ -41,6 +45,24 @@ def rectify_up_is_up(A: Tensor) -> Tensor:
     a22 = det / b2a2
     return torch.stack([torch.stack([a11, a12], -1),
                         torch.stack([a21, a22], -1)], -2)
+
+
+def rotation_matrix(angle: Tensor) -> Tensor:
+    """Batched 2x2 rotation [[cos, sin], [-sin, cos]]."""
+    c, s = torch.cos(angle), torch.sin(angle)
+    return torch.stack([torch.stack([c, s], -1),
+                        torch.stack([-s, c], -1)], -2)
+
+
+def get_normalized_affine_shape(tilt: Tensor, angle: Tensor) -> Tensor:
+    """det-1 tilt R(phi) @ diag(t, 1) @ R(phi), rectified up-is-up (the
+    train-time shape augmentation)."""
+    one = torch.ones_like(tilt)
+    zero = torch.zeros_like(tilt)
+    tilt_A = torch.stack([torch.stack([tilt, zero], -1),
+                          torch.stack([zero, one], -1)], -2)
+    rot = rotation_matrix(angle)
+    return rectify_up_is_up(rot @ tilt_A @ rot)
 
 
 def check_touch_boundary(lafs: Tensor) -> Tensor:

@@ -1,8 +1,8 @@
-"""Kernel B4: the bilinear pyramid patch sampler.
+"""Kernels B4 and B5: the bilinear patch sampler and its backward.
 
-Replaces ``affnet_tpu/ops/pallas_patches.py:_sampler_kernel`` (entries
-``extract_patches_window_matmul`` and ``extract_patches_bucketed``).  CUDA
-source: ``csrc/patches.cu``.
+B4 replaces ``affnet_tpu/ops/pallas_patches.py:_sampler_kernel`` (entries
+``extract_patches_window_matmul`` and ``extract_patches_bucketed``) on the
+extraction path.  CUDA source: ``csrc/patches.cu``.
 
 The TPU kernel fetches a static window per patch and turns bilinear
 sampling into tent-weight matmuls, with an exact fallback for patches that
@@ -11,11 +11,22 @@ direct gather, one thread per output sample, one block per patch, with the
 plain sampler's arithmetic (:func:`.patches.extract_patches_from_flat_pyramid`)
 in the same order.  There is no static window, so nothing can overflow and
 ``n_overflow`` is always 0.
+
+B5 is the same ``_sampler_kernel`` reached through the training warps'
+custom VJP (``_batched_sample_diff``): its forward is B4's kernel on
+per-sample tables (:func:`sample_batched_cuda`), its backward the kernel of
+``csrc/patches_bwd.cu`` (:func:`sample_bwd_cuda`).  The autograd pairing is
+``ops/batched_sampler.py``.
+
+Launch counts: ``launches`` (B4), ``launches_batched`` (B5 forward; and
+``launches_batched_ps``, the same launches by patch size, one per training
+site) and ``launches_bwd`` (B5 backward), one per launch of the kernel,
+nowhere else.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,18 +35,17 @@ from .patches import base_lin, extract_patches_from_flat_pyramid
 
 Tensor = torch.Tensor
 
-MAX_PS = 64        # csrc/patches.cu
+MAX_PS = 64        # csrc/patches.cu, csrc/patches_bwd.cu
 
 launches = 0
+launches_batched = 0
+launches_batched_ps: Dict[int, int] = {}
+launches_bwd = 0
 
 
-def extract_patches_cuda(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
-                         row_offsets: Tensor, heights: Tensor,
-                         widths: Tensor, ps: int = 32,
-                         align_corners: bool = False) -> Tensor:
-    """Launch B4: float32 buffer and (N, 2, 3) LAFs, int32 level index and
-    level tables, all contiguous CUDA tensors."""
-    global launches
+def _check_sampler_args(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
+                        row_offsets: Tensor, heights: Tensor,
+                        widths: Tensor, ps: int) -> None:
     check_tensor(buf2d, "buf2d", torch.float32, 2)
     check_tensor(lafs, "lafs", torch.float32, 3)
     check_tensor(level_idx, "level_idx", torch.int32, 1)
@@ -50,16 +60,83 @@ def extract_patches_cuda(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
         raise ValueError("patches: level tables differ in length")
     if not 2 <= ps <= MAX_PS:
         raise ValueError(f"patches: need 2 <= ps <= {MAX_PS}, got {ps}")
+
+
+def _sample(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
+            row_offsets: Tensor, heights: Tensor, widths: Tensor, ps: int,
+            align_corners: bool) -> Tensor:
+    """Check the arguments and launch csrc/patches.cu (unless N is 0);
+    returns the (N, PS, PS) patches."""
+    _check_sampler_args(buf2d, lafs, level_idx, row_offsets, heights, widths,
+                        ps)
+    n = lafs.shape[0]
     out = torch.empty((n, ps, ps), dtype=torch.float32, device=lafs.device)
     if n == 0:
         return out
     launch("launch_sample_patches", buf2d.data_ptr(), buf2d.shape[0],
            buf2d.shape[1], lafs.data_ptr(), level_idx.data_ptr(),
            row_offsets.data_ptr(), heights.data_ptr(), widths.data_ptr(),
-           n_levels, host_floats(base_lin(ps, align_corners)),
+           heights.shape[0], host_floats(base_lin(ps, align_corners)),
            out.data_ptr(), n, ps, int(align_corners), stream_of(lafs))
-    launches += 1
     return out
+
+
+def extract_patches_cuda(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
+                         row_offsets: Tensor, heights: Tensor,
+                         widths: Tensor, ps: int = 32,
+                         align_corners: bool = False) -> Tensor:
+    """Launch B4: float32 buffer and (N, 2, 3) LAFs, int32 level index and
+    level tables, all contiguous CUDA tensors."""
+    global launches
+    out = _sample(buf2d, lafs, level_idx, row_offsets, heights, widths, ps,
+                  align_corners)
+    launches += int(out.shape[0] > 0)
+    return out
+
+
+def sample_batched_cuda(buf2d: Tensor, lafs: Tensor, tables: tuple,
+                        ps: int, align_corners: bool) -> Tensor:
+    """Launch B5's forward: B4's kernel with LAF i sampling level i of
+    ``tables`` = (level_idx, row_offsets, heights, widths)
+    (:func:`.patches.batched_tables`)."""
+    global launches_batched
+    out = _sample(buf2d, lafs, *tables, ps, align_corners)
+    if out.shape[0] > 0:
+        launches_batched += 1
+        launches_batched_ps[ps] = launches_batched_ps.get(ps, 0) + 1
+    return out
+
+
+def sample_bwd_cuda(buf2d: Tensor, lafs: Tensor, tables: tuple, g: Tensor,
+                    ps: int, align_corners: bool, need_buf: bool,
+                    need_lafs: bool) -> Tuple[Optional[Tensor],
+                                              Optional[Tensor]]:
+    """Launch B5's backward (csrc/patches_bwd.cu) on upstream gradient
+    ``g`` (N, PS, PS): returns (d buf2d or None, d lafs or None) as asked."""
+    global launches_bwd
+    level_idx, row_offsets, heights, widths = tables
+    _check_sampler_args(buf2d, lafs, level_idx, row_offsets, heights, widths,
+                        ps)
+    check_tensor(g, "g", torch.float32, 3)
+    n = lafs.shape[0]
+    if g.shape != (n, ps, ps):
+        raise ValueError(f"patches bwd: g has shape {tuple(g.shape)}, "
+                         f"expected {(n, ps, ps)}")
+    if not (need_buf or need_lafs):
+        raise ValueError("patches bwd: no cotangent asked for")
+    grad_buf = torch.zeros_like(buf2d) if need_buf else None
+    grad_lafs = torch.empty_like(lafs) if need_lafs else None
+    if n == 0:
+        return grad_buf, grad_lafs
+    launch("launch_sample_patches_bwd", buf2d.data_ptr(), buf2d.shape[0],
+           buf2d.shape[1], lafs.data_ptr(), level_idx.data_ptr(),
+           row_offsets.data_ptr(), heights.data_ptr(), widths.data_ptr(),
+           heights.shape[0], host_floats(base_lin(ps, align_corners)),
+           g.data_ptr(), grad_buf.data_ptr() if need_buf else None,
+           grad_lafs.data_ptr() if need_lafs else None, n, ps,
+           int(align_corners), stream_of(lafs))
+    launches_bwd += 1
+    return grad_buf, grad_lafs
 
 
 def extract_patches_pyramid(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,

@@ -81,6 +81,28 @@ def extract_patches_from_flat_pyramid(buf2d: Tensor, lafs: Tensor,
     return out.reshape(n, ps, ps)
 
 
+def batched_tables(n: int, h: int, w: int, device) -> tuple:
+    """Level tables that make a stack of n (h, w) images, flattened to an
+    (n*h, w) buffer, a flat pyramid with one level per image: level i at
+    row i*h.  Returns (level_idx, row_offsets, heights, widths), int32."""
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    full = torch.full((n,), h, dtype=torch.int32, device=device)
+    return idx, idx * h, full, torch.full_like(full, w)
+
+
+def extract_patches_batched(imgs: Tensor, lafs: Tensor, ps: int = 32,
+                            align_corners: bool = False) -> Tensor:
+    """Per-sample extraction, the plain version of kernel B5: LAF i samples
+    image i of (N, H, W) ``imgs`` -> (N, PS, PS).  Differentiable in both
+    arguments through autograd.  Counterpart of the JAX package's
+    ``_extract_patches_batched_xla``."""
+    n, h, w = imgs.shape
+    tables = batched_tables(n, h, w, imgs.device)
+    return extract_patches_from_flat_pyramid(
+        imgs.reshape(n * h, w), lafs, *tables, ps=ps,
+        align_corners=align_corners)
+
+
 def select_levels_for_lafs(dlafs: Tensor, sigma_pixdist_table: Tensor,
                            ps: int) -> Tensor:
     """The flat level whose blur (sigma * pix_dist) is closest to

@@ -20,6 +20,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "import sys\n"
         "import affnet_tpu_torch, affnet_tpu_torch.detector\n"
         "import affnet_tpu_torch.models, affnet_tpu_torch.ops\n"
+        "import affnet_tpu_torch.train, affnet_tpu_torch.data\n"
+        "import affnet_tpu_torch.ops.batched_sampler\n"
         "import affnet_tpu_torch.kernels.build\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -36,7 +38,7 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_sources_have_no_pytorch_headers():
     srcs = glob.glob(os.path.join(build.CSRC_DIR, "*.cu*"))
     assert {os.path.basename(s) for s in build.sources()} >= {
-        "blur.cu", "detect.cu", "topk.cu", "patches.cu"}
+        "blur.cu", "detect.cu", "topk.cu", "patches.cu", "patches_bwd.cu"}
     pattern = re.compile(r'#\s*include\s*[<"](torch|ATen|c10|pybind11|Python)')
     for path in srcs:
         with open(path) as f:
@@ -54,7 +56,7 @@ def test_one_nvcc_call_into_hashed_build_dir():
     assert sorted(c for c in cmd if c.endswith(".cu")) == build.sources()
     assert set(build.SIGNATURES) == {
         "launch_blur", "launch_detect_octave", "launch_row_topm",
-        "launch_sample_patches"}
+        "launch_sample_patches", "launch_sample_patches_bwd"}
 
 
 def test_missing_nvcc_raises(monkeypatch):
