@@ -47,7 +47,13 @@ def load_pretrained(name: str,
     ``{"layer0": {"w": HWIO array}, "layer1": {"mean": ..., "var": ...}}``.
     Counterpart of ``affnet_tpu.models.convert.load_pretrained``; turn the
     tree into a ``state_dict`` with :func:`models.convert.params_from_jax`."""
-    path = os.path.join(weights_dir or WEIGHTS_DIR, f"{name}.npz")
+    return load_params_npz(os.path.join(weights_dir or WEIGHTS_DIR,
+                                        f"{name}.npz"))
+
+
+def load_params_npz(path: str) -> Dict[str, Any]:
+    """A parameter tree from any npz in the JAX package's layout (flat
+    ``"layer{i}/w"`` keys), as :func:`load_pretrained` returns it."""
     tree: Dict[str, Any] = {}
     with np.load(path) as data:
         for key in data.files:

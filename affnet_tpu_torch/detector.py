@@ -8,9 +8,17 @@ scale-aware level selection -> descriptor patches at the "desc" site (B4)
 -> descriptor CNN.
 
 The stages keep the JAX package's fixed-size arrays plus validity mask, so
-the two packages can be compared stage by stage.  This slice covers top-k
-mode in float32 without orientation; threshold mode, the bf16 ``fast``
-mode, ``desc_dtype`` and the orientation stage are later slices.
+the two packages can be compared stage by stage.  Top-k mode without
+orientation; threshold mode and the orientation stage are later slices.
+
+``fast=True`` is the JAX package's fast mode, which its flagship runs: the
+shape and descriptor nets run their activation chains in bf16
+(``PatchNet.with_dtype``) and both patch sites sample through kernel
+B4-bf16 (bf16 corner values and column weights, float32 accumulation);
+detection, top-k and selection stay float32.  ``desc_dtype`` (e.g.
+"float16") casts the returned descriptors.  Float32 tensors mean float32
+math: ``run`` (and so ``__call__``) runs with TF32 off
+(:func:`.utils.float32_math`).
 """
 
 from __future__ import annotations
@@ -31,14 +39,14 @@ from .ops.cuda_patches import extract_patches_pyramid
 from .ops.nms import border_mask, masked_topk, update_octave_map
 from .ops.patches import sample_extents, select_levels_for_lafs
 from .ops.scalespace import PyramidPlan, build_flat_pyramid, make_plan
+from .utils import float32_math
 
 Tensor = torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
-    """The JAX ``DetectorConfig`` fields this slice supports (top-k mode,
-    float32)."""
+    """The JAX ``DetectorConfig`` fields the port supports (top-k mode)."""
     num_features: int = 500
     border: int = 16
     patch_size: int = 32           # descriptor patch size
@@ -49,6 +57,8 @@ class DetectorConfig:
     max_keypoints: int = 8192      # cap on the prefilter count
     align_corners: bool = False
     py2: bool = False
+    fast: bool = False             # bf16 patch sampling and nets
+    desc_dtype: Optional[str] = None   # dtype of the returned descriptors
 
     def prefilter_count(self) -> int:
         """Candidates kept after detection (before the shape stage)."""
@@ -105,9 +115,11 @@ class ScaleSpaceAffinePatchExtractor:
     """Image -> (LAFs, responses[, patches, descriptors]).
 
     ``shape_net`` and ``desc_net`` are ``nn.Module``s on (N, PS, PS)
-    patches (models/zoo.py), moved to ``device``.  ``use_kernels=False``
-    runs every stage through the kernels' plain versions, on any device: it
-    is the yardstick the kernels are held against.
+    patches (models/zoo.py), moved to ``device``; with ``config.fast`` the
+    extractor keeps bf16 copies of them (``with_dtype``).
+    ``use_kernels=False`` runs every stage through the kernels' plain
+    versions, on any device: it is the yardstick the kernels are held
+    against.
     """
 
     def __init__(self, config: DetectorConfig = DetectorConfig(),
@@ -119,10 +131,16 @@ class ScaleSpaceAffinePatchExtractor:
                              "handcrafted estimator is not ported yet)")
         self.cfg = config
         self.device = resolve_device(device)
-        self.shape_net = shape_net.to(self.device).eval() \
-            if shape_net is not None else None
-        self.desc_net = desc_net.to(self.device).eval() \
-            if desc_net is not None else None
+
+        def prepare(net):
+            if net is None:
+                return None
+            if config.fast and hasattr(net, "with_dtype"):
+                net = net.with_dtype(torch.bfloat16)
+            return net.to(self.device).eval()
+
+        self.shape_net = prepare(shape_net)
+        self.desc_net = prepare(desc_net)
         self.use_kernels = use_kernels
         self._plans: Dict[Tuple[int, int], _Plan] = {}
 
@@ -195,7 +213,7 @@ class ScaleSpaceAffinePatchExtractor:
             patches, ovf = extract_patches_pyramid(
                 cand["flat"], lafs_cur, cand["ext_level"], *p.tables,
                 ps=self.shape_net.ps, align_corners=cfg.align_corners,
-                use_kernel=self.use_kernels)
+                use_kernel=self.use_kernels, bf16=cfg.fast)
             overflow += ovf
             A = self.shape_net(patches)
             base_A = A @ base_A
@@ -239,13 +257,17 @@ class ScaleSpaceAffinePatchExtractor:
         patches, ovf = extract_patches_pyramid(
             cand["flat"], cand["lafs"], cand["desc_level"], *p.tables,
             ps=self.cfg.patch_size, align_corners=self.cfg.align_corners,
-            use_kernel=self.use_kernels)
-        return patches, self.desc_net(patches), ovf
+            use_kernel=self.use_kernels, bf16=self.cfg.fast)
+        descs = self.desc_net(patches)
+        if self.cfg.desc_dtype is not None:
+            descs = descs.to(getattr(torch, self.cfg.desc_dtype))
+        return patches, descs, ovf
 
     # ------------------------------------------------------------------
     # Host API
     # ------------------------------------------------------------------
 
+    @float32_math()
     def run(self, img: Tensor, describe: bool = False) -> Dict[str, Tensor]:
         """The whole pipeline on an (H, W) float32 tensor on ``device``:
         fixed-size outputs plus ``valid`` and ``restore``, on the device."""

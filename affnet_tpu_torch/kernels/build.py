@@ -1,7 +1,8 @@
 """Build the CUDA kernels in ``csrc/*.cu`` into one shared library and load
 it with ``ctypes``.
 
-One ``nvcc`` call compiles every source for Hopper (``sm_90a``) into
+One ``nvcc`` process per source, all started together, compiles the
+sources for Hopper (``sm_90a``); one more links the objects into
 ``affnet_tpu_torch/_build/libaffnet_kernels-<hash>.so``, at first use.  The
 sources export plain C functions on raw pointers (no PyTorch header), which
 keeps the build to seconds.  The hash covers the sources and the flags, so a
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from typing import List
 
 import torch
@@ -26,8 +28,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 NVCC_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -44,9 +46,9 @@ SIGNATURES = {
     "launch_row_topm": [_P, _P, _P, _P, _I, _I, _I, _P],
     # buf, buf_rows, pitch, lafs (n, 2, 3), level (n,), row_off, heights,
     # widths, n_levels, lin (host, ps), out (n, ps, ps), n, ps,
-    # align_corners, stream
+    # align_corners, bf16, stream
     "launch_sample_patches": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
-                              _I, _I, _I, _P],
+                              _I, _I, _I, _I, _P],
     # buf, buf_rows, pitch, lafs, level, row_off, heights, widths, n_levels,
     # lin (host, ps), g (n, ps, ps), grad_buf (or null), grad_lafs (or
     # null), n, ps, align_corners, stream
@@ -60,7 +62,7 @@ def sources() -> List[str]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -82,8 +84,37 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(nvcc: str, out: str) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", out, *sources()]
+def compile_command(nvcc: str, src: str, obj: str) -> List[str]:
+    return [nvcc, *COMPILE_FLAGS, "-c", src, "-o", obj]
+
+
+def link_command(nvcc: str, objs: List[str], out: str) -> List[str]:
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", out, *objs]
+
+
+def _run_all(commands: List[List[str]], deadline: float) -> List[str]:
+    """Start every command at once and wait for all; returns the failures'
+    messages.  Every process started is ended before this returns."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in commands]
+    errors = []
+    try:
+        for cmd, proc in zip(commands, procs):
+            try:
+                _, err = proc.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                errors.append(f"{cmd[-3]}: timed out")
+                continue
+            if proc.returncode != 0:
+                errors.append(f"{cmd[-3]}: exit {proc.returncode}\n{err}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return errors
 
 
 def build() -> str:
@@ -94,15 +125,24 @@ def build() -> str:
         return path
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run(nvcc_command(nvcc, tmp), capture_output=True,
-                          text=True, timeout=NVCC_TIMEOUT_S)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, path)
+    tag = f"{os.getpid()}.tmp"
+    tmp = f"{path}.{tag}"
+    srcs = sources()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in srcs]
+    deadline = time.monotonic() + NVCC_TIMEOUT_S
+    try:
+        errors = _run_all([compile_command(nvcc, src, obj)
+                           for src, obj in zip(srcs, objs)], deadline)
+        if not errors:
+            errors = _run_all([link_command(nvcc, objs, tmp)], deadline)
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        os.replace(tmp, path)
+    finally:
+        for f in (*objs, tmp):
+            if os.path.exists(f):
+                os.remove(f)
     return path
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -65,6 +66,14 @@ def get_normalized_affine_shape(tilt: Tensor, angle: Tensor) -> Tensor:
     return rectify_up_is_up(rot @ tilt_A @ rot)
 
 
+def lafs_to_h_frames(lafs: Tensor) -> Tensor:
+    """Append the row [0 0 1]: (..., 2, 3) -> (..., 3, 3) homogeneous
+    frames."""
+    bottom = torch.tensor([0.0, 0.0, 1.0], dtype=lafs.dtype,
+                          device=lafs.device).expand(lafs.shape[:-2] + (1, 3))
+    return torch.cat([lafs, bottom], dim=-2)
+
+
 def check_touch_boundary(lafs: Tensor) -> Tensor:
     """True for LAFs whose +-1 unit-square corners stay inside the
     normalized image [0, 1]^2."""
@@ -86,6 +95,22 @@ def _norm_coef(w: int, h: int, like: Tensor) -> Tensor:
 def denormalize_lafs(lafs: Tensor, w: int, h: int) -> Tensor:
     """Normalized image coordinates -> pixels."""
     return lafs * _norm_coef(w, h, lafs)
+
+
+def normalize_lafs(lafs: Tensor, w: int, h: int) -> Tensor:
+    """Pixels -> normalized image coordinates."""
+    return lafs / _norm_coef(w, h, lafs)
+
+
+def laf_to_boundary_pts(laf: np.ndarray, n_pts: int = 50) -> np.ndarray:
+    """The center and ``n_pts`` points of the ellipse boundary of one
+    (2, 3) LAF, for plotting: (n_pts + 1, 2) numpy array."""
+    a = np.linspace(0, 2 * np.pi, n_pts)
+    x = np.concatenate([[0], np.sin(a)]).reshape(1, -1)
+    y = np.concatenate([[0], np.cos(a)]).reshape(1, -1)
+    frame = np.concatenate([laf, np.array([[0.0, 0.0, 1.0]])])
+    out = (frame @ np.concatenate([x, y, np.ones_like(x)])).T
+    return out[:, :2] / out[:, 2:3]
 
 
 def sc_y_x_to_lafs(sc_y_x: Tensor) -> Tensor:

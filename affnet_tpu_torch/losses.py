@@ -1,9 +1,9 @@
-"""Descriptor losses of AffNet training.
+"""Descriptor losses of AffNet training and shape optimization.
 
 Counterparts of ``loss_hardnegc``, ``loss_hardnet`` (its default
-``batch_reduce="min"``) and ``descriptor_dist`` in ``affnet_tpu/losses.py``,
-with the same masking constants: +10 on the diagonal, +10 on near-duplicate
-negatives (distance < 0.008).
+``batch_reduce="min"``), ``descriptor_dist`` and ``get_snn`` in
+``affnet_tpu/losses.py``, with the same masking constants: +10 on the
+diagonal, +10 on near-duplicate negatives (distance < 0.008).
 """
 
 from __future__ import annotations
@@ -48,6 +48,16 @@ def loss_hardnegc(anchor: Tensor, positive: Tensor,
 
     return (0.5 * half(anchor, positive.detach(), 1)
             + 0.5 * half(anchor.detach(), positive, 0))
+
+
+def get_snn(anchor: Tensor, positive: Tensor) -> Tensor:
+    """Second-nearest-neighbor ratio per anchor: the positive distance over
+    the nearest negative's (the diagonal masked by +10)."""
+    d = distance_matrix(anchor, positive) + EPS
+    n = d.shape[0]
+    pos = torch.diagonal(d)
+    d_masked = d + torch.eye(n, dtype=d.dtype, device=d.device) * 10.0
+    return pos / (d_masked.min(dim=1).values + EPS)
 
 
 def descriptor_dist(desc_a: Tensor, desc_p: Tensor) -> Tensor:

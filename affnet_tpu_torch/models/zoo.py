@@ -11,13 +11,25 @@ AffNetFast to the training forward of the JAX package's
 ``apply_with_state``: BatchNorm on batch statistics, updating the running
 statistics in place (so two calls chain them, as ``np1`` feeds the second
 pass there), and dropout when ``forward`` gets a generator.
+
+``net.with_dtype(torch.bfloat16)`` is the JAX nets' ``with_dtype``: in eval
+mode the activation chain runs in bf16 from the input normalization on
+(computed in float32) to the features, which the head gets in float32.
+Each conv takes bf16 inputs and weights, accumulates in float32 and rounds
+its output to bf16 (cuDNN's bf16 convolution); a bias, and eval
+BatchNorm's mean and 1/sqrt(var + eps) (computed in float32), are rounded
+to bf16 and applied in bf16, as the JAX layers cast them to the
+activation's dtype (``models/cnn.py`` ``conv2d`` and ``batchnorm_eval``).
+Train mode computes in float32.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..laf import rectify_up_is_up
@@ -31,6 +43,24 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0,
     return nn.Conv2d(cin, cout, k, stride=stride, padding=pad, bias=bias)
 
 
+def _channel(v: Tensor, dtype: torch.dtype) -> Tensor:
+    return v.to(dtype)[None, :, None, None]
+
+
+def _conv_in(x: Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> Tensor:
+    """``conv`` with ``dtype`` inputs and weights, float32 accumulation,
+    output rounded to ``dtype``, then the bias in ``dtype``."""
+    y = F.conv2d(x, conv.weight.to(dtype), None, conv.stride, conv.padding)
+    return y if conv.bias is None else y + _channel(conv.bias, dtype)
+
+
+def _batchnorm_eval_in(x: Tensor, bn: nn.BatchNorm2d,
+                       dtype: torch.dtype) -> Tensor:
+    """Eval BatchNorm with the float32 statistics rounded to ``dtype``."""
+    inv = torch.rsqrt(bn.running_var + bn.eps)
+    return (x - _channel(bn.running_mean, dtype)) * _channel(inv, dtype)
+
+
 class PatchNet(nn.Module):
     """``features`` over input-normalized patches, then ``head``.
     ``detach_input_norm`` stops the gradient through ``input_norm``'s
@@ -38,6 +68,7 @@ class PatchNet(nn.Module):
 
     ps = 32
     detach_input_norm = True
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, layers):
         super().__init__()
@@ -47,14 +78,31 @@ class PatchNet(nn.Module):
     def head(self, feats: Tensor) -> Tensor:
         return feats
 
+    def with_dtype(self, dtype: Optional[torch.dtype]) -> "PatchNet":
+        """A copy of the net whose eval forward runs its activation chain
+        in ``dtype`` (None: float32)."""
+        net = copy.deepcopy(self)
+        net.compute_dtype = dtype
+        return net
+
     def forward(self, patches: Tensor,
                 generator: Optional[torch.Generator] = None) -> Tensor:
         """``generator`` draws the dropout masks in train mode; without one
         dropout is off."""
         x = input_norm(patches[:, None, :, :], detach=self.detach_input_norm)
+        dt = None if self.training else self.compute_dtype
+        if dt is not None:
+            x = x.to(dt)
         for layer in self.features:
-            x = layer(x, generator) if isinstance(layer, Dropout) else layer(x)
-        return self.head(x.flatten(1))
+            if isinstance(layer, Dropout):
+                x = layer(x, generator)
+            elif dt is not None and isinstance(layer, nn.Conv2d):
+                x = _conv_in(x, layer, dt)
+            elif dt is not None and isinstance(layer, nn.BatchNorm2d):
+                x = _batchnorm_eval_in(x, layer, dt)
+            else:
+                x = layer(x)
+        return self.head(x.float().flatten(1))
 
 
 class AffNetFast(PatchNet):

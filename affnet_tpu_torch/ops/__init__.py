@@ -1,6 +1,7 @@
-"""Plain tensor ops of the extraction and training paths and the wrappers of
-their CUDA kernels (``cuda_*.py``, ``batched_sampler.py``).  Each wrapper
-keeps a plain integer count: one per kernel launch, nowhere else."""
+"""Plain tensor ops of the extraction, training and shape-optimization
+paths and the wrappers of their CUDA kernels (``cuda_*.py``,
+``batched_sampler.py``, ``pyramid_sampler.py``).  Each wrapper keeps a plain
+integer count: one per kernel launch, nowhere else."""
 
 from . import cuda_blur, cuda_detect, cuda_patches, cuda_topk
 
@@ -10,12 +11,16 @@ COUNTERS = {
     "detect": (cuda_detect, "launches"),
     "topk": (cuda_topk, "launches"),
     "patches": (cuda_patches, "launches"),
+    "patches_bf16": (cuda_patches, "launches_bf16"),
     "batched_fwd": (cuda_patches, "launches_batched"),
     "batched_bwd": (cuda_patches, "launches_bwd"),
+    "pyramid_fwd": (cuda_patches, "launches_pyramid"),
+    "pyramid_bwd": (cuda_patches, "launches_pyramid_bwd"),
 }
 
-# The kernels the extraction path must launch.
+# The kernels the extraction path must launch, in float32 and in fast mode.
 EXTRACTION_KERNELS = ("blur", "detect", "topk", "patches")
+FAST_EXTRACTION_KERNELS = ("blur", "detect", "topk", "patches_bf16")
 
 
 def launch_counts() -> dict:

@@ -1,8 +1,10 @@
-"""Kernels B4 and B5: the bilinear patch sampler and its backward.
+"""Kernels B4, B5 and B6: the bilinear patch sampler and its backward.
 
 B4 replaces ``affnet_tpu/ops/pallas_patches.py:_sampler_kernel`` (entries
 ``extract_patches_window_matmul`` and ``extract_patches_bucketed``) on the
-extraction path.  CUDA source: ``csrc/patches.cu``.
+extraction path.  CUDA source: ``csrc/patches.cu``.  Its bf16 mode
+(B4-bf16) is the same kernel with ``mxu_dtype=bf16``, the extractor's
+``fast`` mode at both patch sites.
 
 The TPU kernel fetches a static window per patch and turns bilinear
 sampling into tent-weight matmuls, with an exact fallback for patches that
@@ -18,10 +20,21 @@ per-sample tables (:func:`sample_batched_cuda`), its backward the kernel of
 ``csrc/patches_bwd.cu`` (:func:`sample_bwd_cuda`).  The autograd pairing is
 ``ops/batched_sampler.py``.
 
-Launch counts: ``launches`` (B4), ``launches_batched`` (B5 forward; and
-``launches_batched_ps``, the same launches by patch size, one per training
-site) and ``launches_bwd`` (B5 backward), one per launch of the kernel,
-nowhere else.
+B6 is the same ``_sampler_kernel`` reached through the shape optimizer's
+``make_pyramid_sampler_diff``: LAF i samples flat pyramid level
+``level_idx[i]``, which moves with the LAFs from step to step.  Forward:
+B4's kernel on the pyramid's own level table (:func:`sample_pyramid_cuda`);
+backward: the kernel of ``csrc/patches_bwd.cu`` on the same table and the
+same level index (:func:`sample_pyramid_bwd_cuda`).  The JAX forward runs
+windows of 256x384 with ``max(16, n // 16)`` fallback slots; the direct
+gather has no window, so it cannot overflow.  The autograd pairing is
+``ops/pyramid_sampler.py``.
+
+Launch counts: ``launches`` (B4), ``launches_bf16`` (B4-bf16),
+``launches_batched`` (B5 forward; and ``launches_batched_ps``, the same
+launches by patch size, one per training site), ``launches_bwd`` (B5
+backward), ``launches_pyramid`` and ``launches_pyramid_bwd`` (B6 forward
+and backward), one per launch of the kernel, nowhere else.
 """
 
 from __future__ import annotations
@@ -38,9 +51,12 @@ Tensor = torch.Tensor
 MAX_PS = 64        # csrc/patches.cu, csrc/patches_bwd.cu
 
 launches = 0
+launches_bf16 = 0
 launches_batched = 0
 launches_batched_ps: Dict[int, int] = {}
 launches_bwd = 0
+launches_pyramid = 0
+launches_pyramid_bwd = 0
 
 
 def _check_sampler_args(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
@@ -64,9 +80,9 @@ def _check_sampler_args(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
 
 def _sample(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
             row_offsets: Tensor, heights: Tensor, widths: Tensor, ps: int,
-            align_corners: bool) -> Tensor:
+            align_corners: bool, bf16: bool = False) -> Tensor:
     """Check the arguments and launch csrc/patches.cu (unless N is 0);
-    returns the (N, PS, PS) patches."""
+    returns the (N, PS, PS) float32 patches."""
     _check_sampler_args(buf2d, lafs, level_idx, row_offsets, heights, widths,
                         ps)
     n = lafs.shape[0]
@@ -77,20 +93,27 @@ def _sample(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
            buf2d.shape[1], lafs.data_ptr(), level_idx.data_ptr(),
            row_offsets.data_ptr(), heights.data_ptr(), widths.data_ptr(),
            heights.shape[0], host_floats(base_lin(ps, align_corners)),
-           out.data_ptr(), n, ps, int(align_corners), stream_of(lafs))
+           out.data_ptr(), n, ps, int(align_corners), int(bf16),
+           stream_of(lafs))
     return out
 
 
 def extract_patches_cuda(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
                          row_offsets: Tensor, heights: Tensor,
                          widths: Tensor, ps: int = 32,
-                         align_corners: bool = False) -> Tensor:
-    """Launch B4: float32 buffer and (N, 2, 3) LAFs, int32 level index and
-    level tables, all contiguous CUDA tensors."""
-    global launches
+                         align_corners: bool = False,
+                         bf16: bool = False) -> Tensor:
+    """Launch B4 (B4-bf16 with ``bf16``): float32 buffer and (N, 2, 3)
+    LAFs, int32 level index and level tables, all contiguous CUDA
+    tensors."""
+    global launches, launches_bf16
     out = _sample(buf2d, lafs, level_idx, row_offsets, heights, widths, ps,
-                  align_corners)
-    launches += int(out.shape[0] > 0)
+                  align_corners, bf16)
+    if out.shape[0] > 0:
+        if bf16:
+            launches_bf16 += 1
+        else:
+            launches += 1
     return out
 
 
@@ -107,13 +130,23 @@ def sample_batched_cuda(buf2d: Tensor, lafs: Tensor, tables: tuple,
     return out
 
 
-def sample_bwd_cuda(buf2d: Tensor, lafs: Tensor, tables: tuple, g: Tensor,
-                    ps: int, align_corners: bool, need_buf: bool,
-                    need_lafs: bool) -> Tuple[Optional[Tensor],
-                                              Optional[Tensor]]:
-    """Launch B5's backward (csrc/patches_bwd.cu) on upstream gradient
-    ``g`` (N, PS, PS): returns (d buf2d or None, d lafs or None) as asked."""
-    global launches_bwd
+def sample_pyramid_cuda(buf2d: Tensor, lafs: Tensor, tables: tuple,
+                        ps: int, align_corners: bool) -> Tensor:
+    """Launch B6's forward: B4's kernel, LAF i sampling flat level
+    ``level_idx[i]`` of ``tables`` = (level_idx, row_offsets, heights,
+    widths)."""
+    global launches_pyramid
+    out = _sample(buf2d, lafs, *tables, ps, align_corners)
+    launches_pyramid += int(out.shape[0] > 0)
+    return out
+
+
+def _sample_bwd(buf2d: Tensor, lafs: Tensor, tables: tuple, g: Tensor,
+                ps: int, align_corners: bool, need_buf: bool,
+                need_lafs: bool) -> Tuple[Optional[Tensor],
+                                          Optional[Tensor]]:
+    """Check the arguments and launch csrc/patches_bwd.cu (unless N is 0):
+    (d buf2d or None, d lafs or None)."""
     level_idx, row_offsets, heights, widths = tables
     _check_sampler_args(buf2d, lafs, level_idx, row_offsets, heights, widths,
                         ps)
@@ -135,24 +168,51 @@ def sample_bwd_cuda(buf2d: Tensor, lafs: Tensor, tables: tuple, g: Tensor,
            g.data_ptr(), grad_buf.data_ptr() if need_buf else None,
            grad_lafs.data_ptr() if need_lafs else None, n, ps,
            int(align_corners), stream_of(lafs))
-    launches_bwd += 1
     return grad_buf, grad_lafs
+
+
+def sample_bwd_cuda(buf2d: Tensor, lafs: Tensor, tables: tuple, g: Tensor,
+                    ps: int, align_corners: bool, need_buf: bool,
+                    need_lafs: bool) -> Tuple[Optional[Tensor],
+                                              Optional[Tensor]]:
+    """Launch B5's backward (csrc/patches_bwd.cu) on upstream gradient
+    ``g`` (N, PS, PS): returns (d buf2d or None, d lafs or None) as asked."""
+    global launches_bwd
+    grads = _sample_bwd(buf2d, lafs, tables, g, ps, align_corners, need_buf,
+                        need_lafs)
+    launches_bwd += int(lafs.shape[0] > 0)
+    return grads
+
+
+def sample_pyramid_bwd_cuda(buf2d: Tensor, lafs: Tensor, tables: tuple,
+                            g: Tensor, ps: int, align_corners: bool,
+                            need_buf: bool, need_lafs: bool
+                            ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
+    """Launch B6's backward: csrc/patches_bwd.cu on the pyramid's level
+    table and the forward's level index."""
+    global launches_pyramid_bwd
+    grads = _sample_bwd(buf2d, lafs, tables, g, ps, align_corners, need_buf,
+                        need_lafs)
+    launches_pyramid_bwd += int(lafs.shape[0] > 0)
+    return grads
 
 
 def extract_patches_pyramid(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
                             row_offsets: Tensor, heights: Tensor,
                             widths: Tensor, ps: int = 32,
                             align_corners: bool = False,
-                            use_kernel: bool = True) -> Tuple[Tensor, int]:
+                            use_kernel: bool = True,
+                            bf16: bool = False) -> Tuple[Tensor, int]:
     """Pyramid patches and the overflow count (always 0: no static
-    window).  B4 for CUDA tensors; the plain sampler for CPU tensors or when
-    ``use_kernel`` is False."""
+    window).  B4 (B4-bf16 with ``bf16``) for CUDA tensors; the plain sampler
+    for CPU tensors or when ``use_kernel`` is False."""
     if lafs.device.type == "cpu" or not use_kernel:
         patches = extract_patches_from_flat_pyramid(
             buf2d, lafs, level_idx, row_offsets, heights, widths, ps=ps,
-            align_corners=align_corners)
+            align_corners=align_corners, bf16=bf16)
     else:
         patches = extract_patches_cuda(
             buf2d, lafs.contiguous(), level_idx.to(torch.int32).contiguous(),
-            row_offsets, heights, widths, ps=ps, align_corners=align_corners)
+            row_offsets, heights, widths, ps=ps, align_corners=align_corners,
+            bf16=bf16)
     return patches, 0

@@ -11,6 +11,11 @@ torch ``affine_grid`` + ``grid_sample`` semantics in both conventions:
 where p = A_norm * min(h, w) @ (gx, gy) + (tx * w, ty * h) in the level's
 pixels; out-of-level bilinear corners contribute zero.  Every LAF carries a
 flat level index into the (row_offsets, heights, widths) tables.
+
+``bf16=True`` is the plain version of kernel B4's bf16 mode (the TPU
+sampler's ``mxu_dtype=bf16``): corner values and column weights rounded to
+bf16, each row's two products summed in float32, the rows weighted by the
+float32 row weights.
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ def extract_patches_from_flat_pyramid(buf2d: Tensor, lafs: Tensor,
                                       level_idx: Tensor, row_offsets: Tensor,
                                       heights: Tensor, widths: Tensor,
                                       ps: int = 32,
-                                      align_corners: bool = False) -> Tensor:
-    """(N, PS, PS) bilinear patches; LAF i samples flat level
+                                      align_corners: bool = False,
+                                      bf16: bool = False) -> Tensor:
+    """(N, PS, PS) float32 bilinear patches; LAF i samples flat level
     ``level_idx[i]`` of the row-padded buffer (pitch = buffer width)."""
     dev, dt = lafs.device, lafs.dtype
     lin = torch.from_numpy(base_lin(ps, align_corners)).to(dev)
@@ -67,18 +73,38 @@ def extract_patches_from_flat_pyramid(buf2d: Tensor, lafs: Tensor,
     x0i = x0.to(torch.int64)
     y0i = y0.to(torch.int64)
 
-    def corner(xc, yc, wgt):
+    def fetch(xc, yc):
         inb = (xc >= 0) & (xc <= wi - 1) & (yc >= 0) & (yc <= hi - 1)
         xcc = torch.minimum(torch.clamp(xc, min=0), wi - 1)
         ycc = torch.minimum(torch.clamp(yc, min=0), hi - 1)
-        vals = flat[(ro + ycc) * pitch + xcc]
-        return vals * wgt * inb.to(dt)
+        return flat[(ro + ycc) * pitch + xcc], inb.to(dt)
+
+    if bf16:
+        def corner_bf16(xc, yc):
+            vals, inb = fetch(xc, yc)
+            return to_bf16(vals) * inb
+
+        cx0, cx1 = to_bf16(1 - fx), to_bf16(fx)
+        row0 = (corner_bf16(x0i, y0i) * cx0
+                + corner_bf16(x0i + 1, y0i) * cx1)
+        row1 = (corner_bf16(x0i, y0i + 1) * cx0
+                + corner_bf16(x0i + 1, y0i + 1) * cx1)
+        return ((1 - fy) * row0 + fy * row1).reshape(n, ps, ps)
+
+    def corner(xc, yc, wgt):
+        vals, inb = fetch(xc, yc)
+        return vals * wgt * inb
 
     out = (corner(x0i, y0i, (1 - fx) * (1 - fy))
            + corner(x0i + 1, y0i, fx * (1 - fy))
            + corner(x0i, y0i + 1, (1 - fx) * fy)
            + corner(x0i + 1, y0i + 1, fx * fy))
     return out.reshape(n, ps, ps)
+
+
+def to_bf16(x: Tensor) -> Tensor:
+    """float32 values rounded to bf16 (round to nearest even), as float32."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def batched_tables(n: int, h: int, w: int, device) -> tuple:

@@ -41,7 +41,7 @@ from .augmentation import (random_warp_lafs, warp_and_crop,
                            warp_by_predicted_transform)
 from .models import HardTFeatNet, params_from_jax, params_to_jax
 from .models.cnn import init_params, l2norm
-from .utils import MetricsLogger
+from .utils import MetricsLogger, float32_math
 
 Tensor = torch.Tensor
 
@@ -82,9 +82,11 @@ def lr_at_step(step: int, cfg: TrainConfig) -> float:
     """Linear decay lr0 * max(0, 1 - step * bs / (n_pairs * epochs)), in
     float32 like the JAX package's; the clamp keeps a resume past the
     schedule's end from turning SGD into ascent."""
-    span = np.float32(cfg.total_epochs or cfg.epochs)
+    span = float(cfg.total_epochs or cfg.epochs)
+    # The divisor is rounded to float32 once, from the exact product, as
+    # JAX rounds the Python-float operand of a float32 division.
     frac = (np.float32(step) * np.float32(cfg.batch_size)
-            / (np.float32(cfg.n_pairs) * span))
+            / np.float32(cfg.n_pairs * span))
     return float(np.float32(cfg.lr)
                  * np.maximum(np.float32(0.0), np.float32(1.0) - frac))
 
@@ -180,6 +182,7 @@ def affnet_loss(model: nn.Module, descriptor_fn, cfg: TrainConfig,
             losses.descriptor_dist(desc_a, desc_p))
 
 
+@float32_math()
 def affnet_step_core(state: TrainState, descriptor_fn, cfg: TrainConfig,
                      batch: Tuple[Tensor, Tensor],
                      lafs: Tuple[Tensor, Tensor],
@@ -252,6 +255,7 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Dict[str, np.ndarray]],
 # The training loop
 # ---------------------------------------------------------------------------
 
+@float32_math()
 def train_loop(model: nn.Module, dataset, cfg: TrainConfig,
                log_dir: str = "./logs",
                desc_params: Optional[Dict[str, Any]] = None,

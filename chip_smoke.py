@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each timed and each fatal on failure:
 
-  1. build   — compile csrc/*.cu with one nvcc call (affnet_tpu_torch/_build/).
+  1. build   — compile csrc/*.cu, one nvcc per source started together, and
+               link them (affnet_tpu_torch/_build/).
   2. kernels — every kernel of the extraction path against its plain PyTorch
                version on the card, at the shapes the 1080p main path gives
                it, and timed beside the plain version, a PyTorch library call
@@ -31,16 +32,41 @@ Phases, each timed and each fatal on failure:
                launches per step, weights and BatchNorm statistics moved, one
                step equal to the plain path's on the card, PosDist falling
                on a fixed batch; ms per training step and pairs/s.
+  7. shape kernels — kernel B6 (the shape optimizer's differentiable
+               pyramid sampler: B4's kernel and csrc/patches_bwd.cu on the
+               pyramid's level table) on the 640x800 fixture's one-level
+               pyramid with the 200 detected LAFs, whose levels differ:
+               forward bit-identical to the plain version, backward against
+               autograd of the plain version, only the asked cotangents;
+               timed beside the plain version, affine_grid + grid_sample and
+               its bound.
+  8. shape opt — the reference's shape-optimization script through the
+               optimize_shapes program's functions: 200 features (border 32,
+               mr_size 5.12, no shape iteration) on the 640x800 fixture,
+               shear mode with H = I, GT pairs, SIFT, HardNegC, Adam lr 2.0,
+               100 steps: loss and shape difference fall, 2 B6 forward and 2
+               B6 backward launches per step, ms per Adam step; the first
+               step equal to the plain path's on the card; then 10 steps with
+               the TFeat descriptor (a CNN's backward on the path).
+  9. fast    — the flagship as bench.py runs it: fast=True (bf16 nets and
+               kernel B4-bf16 at both patch sites), desc_dtype="float16", on
+               the images of phase 3: B4-bf16 bit-identical to its plain
+               version at both sites (timed beside it, F.grid_sample on bf16
+               and its bound), keypoints identical to the plain fast path on
+               the card, the keypoint set against the float32 run (gate flips
+               counted), float16 unit-norm descriptors, ms per image.
 
 Kernel times ("ms") are device times from torch.profiler (CUPTI): the
 card's busy time per call, without the host's launch overhead.  The log
 also prints each kernel's median per-call time between CUDA events, which
 includes that overhead.
 
-TF32 is switched off for cuDNN convolutions and matmuls for the whole run, so
-the nets compute in float32 like the JAX reference.  Imports torch, numpy and
-the standard library only.  The last line of stdout is
-{"ok": true, "device": {...}}; the line before it the per-kernel JSON.
+The package's entry points (the extractor, the training step, the shape
+optimizer) run with TF32 off for cuDNN convolutions and matmuls
+(affnet_tpu_torch.utils.float32_math), so the nets compute in float32 like
+the JAX reference.  Imports torch, numpy and the standard library only.
+The last line of stdout is {"ok": true, "device": {...}}; the line before
+it the per-kernel JSON.
 """
 
 from __future__ import annotations
@@ -64,6 +90,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from affnet_tpu_torch import load_pretrained
+from affnet_tpu_torch.cli import optimize_shapes
 from affnet_tpu_torch.data import (DevicePairDataset, PairDataset,
                                    synthetic_pairs_from_image)
 from affnet_tpu_torch.detector import (DetectorConfig,
@@ -71,13 +98,16 @@ from affnet_tpu_torch.detector import (DetectorConfig,
 from affnet_tpu_torch.kernels import build
 from affnet_tpu_torch.models import AffNetFast, HardTFeatNet, params_from_jax
 from affnet_tpu_torch.models.cnn import init_params
-from affnet_tpu_torch.ops import (EXTRACTION_KERNELS, cuda_blur, cuda_detect,
-                                  cuda_patches, cuda_topk, launch_counts,
+from affnet_tpu_torch.ops import (EXTRACTION_KERNELS, FAST_EXTRACTION_KERNELS,
+                                  cuda_blur, cuda_detect, cuda_patches,
+                                  cuda_topk, launch_counts,
                                   reset_launch_counts)
 from affnet_tpu_torch.ops.nms import M_CAND, ROW_S
 from affnet_tpu_torch.ops.patches import (base_lin, batched_tables,
-                                          extract_patches_batched)
+                                          extract_patches_batched,
+                                          extract_patches_from_flat_pyramid)
 from affnet_tpu_torch.ops.scalespace import build_pyramid, gauss_kernel_1d
+from affnet_tpu_torch.shape_opt import LAFShapeOptimizer
 from affnet_tpu_torch.train import (TrainConfig, draw_affnet_lafs,
                                     init_state, make_affnet_train_step,
                                     make_descriptor, tilt_for_epoch,
@@ -93,9 +123,11 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
-# bench.py's flagship configuration in float32 top-k mode.
+# bench.py's flagship configuration in float32 top-k mode, and as bench.py
+# runs it (bench.py:65-67): fast mode, float16 descriptors.
 CONFIG = DetectorConfig(num_features=NFEATS, border=5, mr_size=5.192,
                         num_baum_iters=1, patch_size=32)
+FAST_CONFIG = dataclasses.replace(CONFIG, fast=True, desc_dtype="float16")
 
 
 def log(msg: str) -> None:
@@ -301,14 +333,26 @@ def _n_touched(buf, u, v, row0, h, w) -> int:
 
 
 def check_patches(site: str, buf, lafs, level, tables, ps=32,
-                  align=False) -> dict:
+                  align=False, bf16=False) -> dict:
+    """B4 (B4-bf16 with ``bf16``, which must equal its plain version bit
+    for bit) at one patch site."""
     offs, hs, ws = tables
-    got = cuda_patches.extract_patches_cuda(buf, lafs, level, offs, hs, ws,
-                                            ps=ps, align_corners=align)
-    ref, _ = cuda_patches.extract_patches_pyramid(
-        buf, lafs, level, offs, hs, ws, ps=ps, align_corners=align,
-        use_kernel=False)
+
+    def kernel():
+        return cuda_patches.extract_patches_cuda(
+            buf, lafs, level, offs, hs, ws, ps=ps, align_corners=align,
+            bf16=bf16)
+
+    def plain():
+        return cuda_patches.extract_patches_pyramid(
+            buf, lafs, level, offs, hs, ws, ps=ps, align_corners=align,
+            use_kernel=False, bf16=bf16)[0]
+
+    got, ref = kernel(), plain()
     err = float((got - ref).abs().max())
+    if bf16:
+        require(torch.equal(got, ref),
+                f"patches bf16 ({site}): not bit-identical, max err {err}")
     require(bool(torch.all((got - ref).abs() <= 5e-3 + 5e-5 * ref.abs())),
             f"patches ({site}): max err {err}")
     u, v, row0, h, w = _sample_positions(lafs, level, offs, hs, ws, ps,
@@ -323,19 +367,34 @@ def check_patches(site: str, buf, lafs, level, tables, ps=32,
     gyn = (2.0 * (v + row0) + 1.0) / buf.shape[0] - 1.0
     grid = torch.stack([gxn, gyn], -1).reshape(1, n * ps, ps, 2)
     b4 = buf[None, None]
+    if bf16:       # the yardstick samples a bf16 buffer (grid_sample wants
+        b4, grid = b4.bfloat16(), grid.bfloat16()    # one dtype for both)
     return dict(
-        name=f"patches_{site}", err=err, shape=(n, ps, ps),
-        ms=time_ms(lambda: cuda_patches.extract_patches_cuda(
-            buf, lafs, level, offs, hs, ws, ps=ps, align_corners=align), 20),
-        event_ms=event_median_ms(lambda: cuda_patches.extract_patches_cuda(
-            buf, lafs, level, offs, hs, ws, ps=ps, align_corners=align), 20),
-        plain_ms=time_ms(lambda: cuda_patches.extract_patches_pyramid(
-            buf, lafs, level, offs, hs, ws, ps=ps, align_corners=align,
-            use_kernel=False), 5),
+        name=f"patches_{'bf16_' if bf16 else ''}{site}", err=err,
+        shape=(n, ps, ps), ms=time_ms(kernel, 20),
+        event_ms=event_median_ms(kernel, 20), plain_ms=time_ms(plain, 5),
         library_ms=time_ms(lambda: F.grid_sample(
             b4, grid, mode="bilinear", padding_mode="zeros",
             align_corners=False), 20),
         bound_ms=t_bytes, bound_by=by)
+
+
+def check_patch_sites(det, img: torch.Tensor, bf16: bool = False) -> dict:
+    """B4 (or B4-bf16) at the shape and desc sites, on the inputs the
+    extractor's stages give them."""
+    res = {}
+    p = det._plan(H, W)
+    cand = det._multiscale_detect(img, p)
+    cand["lafs"] = torch.cat([det.cfg.mr_size * cand["lafs"][:, :, 0:2],
+                              cand["lafs"][:, :, 2:]], dim=2)
+    res["shape"] = check_patches(
+        "shape", cand["flat"], cand["lafs"].contiguous(),
+        cand["ext_level"].to(torch.int32), p.tables, bf16=bf16)
+    cand = det._sort_for_describe(det._affine_shape(cand, p), p, H, W)
+    res["desc"] = check_patches(
+        "desc", cand["flat"], cand["lafs"].contiguous(),
+        cand["desc_level"].to(torch.int32), p.tables, bf16=bf16)
+    return res
 
 
 def phase_kernels(det, img: torch.Tensor, seed: int) -> dict:
@@ -347,16 +406,8 @@ def phase_kernels(det, img: torch.Tensor, seed: int) -> dict:
     res["detect"] = check_detect(build_pyramid(img, p.plan)[0],
                                  p.plan.sigmas[0])
     res["topk"] = check_topk(det._responses(img, p)[1], seed)
-    cand = det._multiscale_detect(img, p)
-    cand["lafs"] = torch.cat([CONFIG.mr_size * cand["lafs"][:, :, 0:2],
-                              cand["lafs"][:, :, 2:]], dim=2)
-    res["patches_shape"] = check_patches(
-        "shape", cand["flat"], cand["lafs"].contiguous(),
-        cand["ext_level"].to(torch.int32), p.tables)
-    cand = det._sort_for_describe(det._affine_shape(cand, p), p, H, W)
-    res["patches_desc"] = check_patches(
-        "desc", cand["flat"], cand["lafs"].contiguous(),
-        cand["desc_level"].to(torch.int32), p.tables)
+    for site, r in check_patch_sites(det, img).items():
+        res[f"patches_{site}"] = r
     return res
 
 
@@ -364,13 +415,14 @@ def phase_kernels(det, img: torch.Tensor, seed: int) -> dict:
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def check_outputs(out: dict, i: int) -> None:
+def check_outputs(out: dict, i: int, dtype=np.float32) -> None:
     n = len(out["resp"])
     require(n == NFEATS, f"image {i}: {n} valid keypoints, expected {NFEATS}")
     d = out["descs"]
+    require(d.dtype == dtype, f"image {i}: descriptors {d.dtype}, not {dtype}")
     require(d.shape == (NFEATS, 128) and np.isfinite(d).all(),
             f"image {i}: descriptors not finite / wrong shape {d.shape}")
-    norms = np.linalg.norm(d, axis=1)
+    norms = np.linalg.norm(d.astype(np.float32), axis=1)
     require(np.abs(norms - 1.0).max() < 1e-3, f"image {i}: norms {norms}")
     require(np.isfinite(out["lafs"]).all(), f"image {i}: LAFs not finite")
 
@@ -396,29 +448,50 @@ def check_golden(device) -> None:
     np.testing.assert_allclose(out["lafs"], g["aff_lafs"], atol=1e-2)
 
 
-def phase_main(det, det_plain, imgs) -> dict:
+def phase_main(det, det_plain, imgs, kernels=EXTRACTION_KERNELS,
+               dtype=np.float32) -> dict:
     reset_launch_counts()
     t0 = time.perf_counter()
     outs = [det(img, describe=True) for img in imgs]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    log(f"main path launches ({len(imgs)} images): {json.dumps(counts)}")
-    for name in EXTRACTION_KERNELS:
+    log(f"main path launches ({len(imgs)} images, fast={det.cfg.fast}): "
+        f"{json.dumps(counts)}")
+    for name in kernels:
         require(counts[name] > 0,
                 f"kernel {name} was not launched on the main path")
+    # fast mode samples in bf16 only, float32 mode in float32 only.
+    other = "patches" if det.cfg.fast else "patches_bf16"
+    require(counts[other] == 0, f"{other} launched in fast={det.cfg.fast}")
     for i, out in enumerate(outs):
-        check_outputs(out, i)
+        check_outputs(out, i, dtype)
         ref = det_plain(imgs[i], describe=True)
         require(np.array_equal(out["orig_idx"], ref["orig_idx"]),
                 f"image {i}: keypoints differ from the plain path on the card")
         for k in ("resp", "lafs", "descs", "patches"):
-            err = float(np.abs(out[k] - ref[k]).max())
-            require(err <= 1e-3 * max(1.0, float(np.abs(ref[k]).max())),
+            a, b = out[k].astype(np.float32), ref[k].astype(np.float32)
+            err = float(np.abs(a - b).max())
+            require(err <= 1e-3 * max(1.0, float(np.abs(b).max())),
                     f"image {i}: {k} differs from the plain path by {err}")
         log(f"image {i}: {len(out['resp'])} keypoints, n_detected "
             f"{out['n_detected']}, identical to the plain path")
-    return {"counts": counts, "first_pass_s": wall}
+    return {"counts": counts, "first_pass_s": wall, "outs": outs}
+
+
+def time_per_image(dets, imgs, passes: int = 2) -> list:
+    """Host-clock ms of each call, synchronized at both ends, for each
+    extractor in turn on every image, ``passes`` times."""
+    times = [[] for _ in dets]
+    for _ in range(passes):
+        for img in imgs:
+            for d, acc in zip(dets, times):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                d(img, describe=True)
+                torch.cuda.synchronize()
+                acc.append((time.perf_counter() - t1) * 1e3)
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -779,6 +852,324 @@ def run_training(seed, device) -> tuple:
     return res, tr
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-8: shape optimization (kernel B6)
+# ---------------------------------------------------------------------------
+
+# The reference's script (optimization_script.py, as the optimize_shapes
+# program mirrors it): 200 features, shear mode with H = I, GT gate 1 px,
+# SIFT, HardNegC, Adam lr 2.0, 100 steps; ms per step over steps 10..99.
+SHAPE_NFEATS, SHAPE_STEPS, SHAPE_TIMED_FROM = 200, 100, 10
+SHAPE_LR, SHAPE_TFEAT_STEPS = 2.0, 10
+
+
+def shape_problem(device) -> tuple:
+    """(image, LAFs of view 1, LAFs of view 2, detections): the optimize
+    program's detection and GT pairs on the 640x800 fixture."""
+    img = np.load(os.path.join(FIXTURES, "detector_golden_fullres.npz"))["img"]
+    img = np.ascontiguousarray(img, np.float32)
+    det = ScaleSpaceAffinePatchExtractor(
+        optimize_shapes.detector_config(SHAPE_NFEATS), device=device)
+    lafs1, lafs2, n_det = optimize_shapes.gt_pairs(
+        det, img, img, np.eye(3, dtype=np.float32), "shear", 1.0)
+    return img, lafs1, lafs2, n_det
+
+
+def shape_optimizer(name: str, device, use_kernels: bool = True):
+    return LAFShapeOptimizer(
+        optimize_shapes.make_descriptor(name, device=device),
+        optimize_shapes.loss_fn("HardNegC"), lr=SHAPE_LR, patch_size=32,
+        device=device, use_kernels=use_kernels)
+
+
+def _pyramid_theta(nlafs, lvl, tables, buf_shape):
+    """affine_grid's theta for B6's function over the whole buffer as one
+    image (align_corners=False): x = 2 (m (a00 gx + a01 gy) + w tx) / W - 1,
+    y = 2 (m (a10 gx + a11 gy) + h ty + row_off) / H - 1."""
+    offs, hs, ws = tables
+    lv = lvl.long()
+    h, w = hs[lv].float(), ws[lv].float()
+    m = torch.minimum(h, w)
+    hb, wb = buf_shape
+    sx, sy = (2.0 * m / wb)[:, None], (2.0 * m / hb)[:, None]
+    row_x = torch.cat([nlafs[:, 0, :2] * sx,
+                       (2.0 * w * nlafs[:, 0, 2] / wb - 1.0)[:, None]], 1)
+    row_y = torch.cat([nlafs[:, 1, :2] * sy,
+                       (2.0 * (h * nlafs[:, 1, 2] + offs[lv].float()) / hb
+                        - 1.0)[:, None]], 1)
+    return torch.stack([row_x, row_y], 1)
+
+
+def _library_pyramid_sample(buf, theta, ps):
+    n = theta.shape[0]
+    grid = F.affine_grid(theta, (n, 1, ps, ps), align_corners=False)
+    return F.grid_sample(buf[None, None], grid.reshape(1, n * ps, ps, 2),
+                         mode="bilinear", padding_mode="zeros",
+                         align_corners=False).reshape(n, ps, ps)
+
+
+def check_pyramid_kernels(opt, st, seed) -> dict:
+    """B6 forward and backward on view 1's pyramid at the 200 LAFs' own
+    levels, against the plain version and autograd of it."""
+    ps = opt.ps
+    view = st.views[0]
+    nlafs, lvl = opt.sampler_inputs(view, st.shapes[0].detach())
+    nlafs, lvl = nlafs.contiguous(), lvl.to(torch.int32).contiguous()
+    levels = torch.unique(lvl).tolist()
+    require(len(levels) >= 2, f"B6 check: the LAFs use levels {levels}")
+    buf, tables = view.flat, view.tables
+    tab4 = (lvl, *tables)
+    n = nlafs.shape[0]
+
+    def fwd():
+        return cuda_patches.sample_pyramid_cuda(buf, nlafs, tab4, ps, False)
+
+    def plain_fwd():
+        return extract_patches_from_flat_pyramid(buf, nlafs, lvl, *tables,
+                                                 ps=ps)
+
+    got = fwd()
+    require(torch.equal(got, plain_fwd()), "B6 forward: not bit-identical")
+
+    gen = torch.Generator(device=buf.device).manual_seed(seed)
+    g = 2 * torch.rand((n, ps, ps), generator=gen, device=buf.device) - 1
+
+    def bwd(need_buf=False):
+        return cuda_patches.sample_pyramid_bwd_cuda(buf, nlafs, tab4, g, ps,
+                                                    False, need_buf, True)
+
+    _, got_l = bwd()
+    got_b, got_l2 = bwd(True)
+    require(torch.equal(got_l, got_l2),
+            "B6 backward: LAF cotangent differs from run to run")
+    b = buf.clone().requires_grad_(True)
+    lf = nlafs.clone().requires_grad_(True)
+    out = extract_patches_from_flat_pyramid(b, lf, lvl, *tables, ps=ps)
+    ref_b, ref_l = torch.autograd.grad(out, (b, lf), g, retain_graph=True)
+    scale = float(ref_l.abs().max())
+    err = float((got_l - ref_l).abs().max())
+    require(bool(torch.all((got_l - ref_l).abs()
+                           <= 1e-4 * scale + 1e-4 * ref_l.abs())),
+            f"B6 backward: LAF cotangent max err {err} (scale {scale})")
+    scale_b = float(ref_b.abs().max())
+    err_b = float((got_b - ref_b).abs().max())
+    require(bool(torch.all((got_b - ref_b).abs()
+                           <= 1e-5 * scale_b + 1e-5 * ref_b.abs())),
+            f"B6 backward: buffer cotangent max err {err_b} (scale "
+            f"{scale_b})")
+    # Through the autograd Function: the buffer needs no gradient, so the
+    # backward computes the LAF cotangent only.
+    lf2 = nlafs.clone().requires_grad_(True)
+    before = cuda_patches.launches_pyramid_bwd
+    view.sample(buf, lf2, lvl).backward(g)
+    require(cuda_patches.launches_pyramid_bwd == before + 1
+            and buf.grad is None and torch.equal(lf2.grad, got_l),
+            "B6 backward through autograd: not the LAF cotangent alone")
+
+    u, v, row0, h, w = _sample_positions(nlafs, lvl, *tables, ps, False)
+    n_touched = _n_touched(buf, u, v, row0, h, w)
+    fb, fby = bound_ms(n_touched * 4 + n * (24 + 4) + n * ps * ps * 4,
+                       30 * n * ps * ps)
+    bb, bby = bound_ms(n_touched * 4 + n * ps * ps * 4 + n * (4 + 2 * 24),
+                       40 * n * ps * ps)
+    theta = _pyramid_theta(nlafs, lvl, tables, buf.shape)
+    theta_g = theta.clone().requires_grad_(True)
+    lib_out = _library_pyramid_sample(buf, theta_g, ps)
+    # The yardstick pads at the buffer's edges, not the level's: compare
+    # where all four corners lie inside the level.
+    inside = ((torch.floor(u) >= 0) & (torch.floor(u) + 1 <= w - 1)
+              & (torch.floor(v) >= 0) & (torch.floor(v) + 1 <= h - 1))
+    lib_err = float((lib_out.detach() - got).abs()[inside].max())
+    fwd_res = dict(name="pyramid_fwd", err=0.0, shape=(n, ps, ps),
+                   levels=levels, library_err=lib_err,
+                   ms=time_ms(fwd, 20), event_ms=event_median_ms(fwd, 20),
+                   plain_ms=time_ms(plain_fwd, 5),
+                   library_ms=time_ms(
+                       lambda: _library_pyramid_sample(buf, theta, ps), 20),
+                   bound_ms=fb, bound_by=fby)
+    bwd_res = dict(name="pyramid_bwd", err=err, err_buf=err_b,
+                   laf_scale=scale, shape=(n, ps, ps),
+                   ms=time_ms(bwd, 20), event_ms=event_median_ms(bwd, 20),
+                   ms_with_buffer=time_ms(lambda: bwd(True), 20),
+                   plain_ms=time_ms(lambda: torch.autograd.grad(
+                       out, lf, g, retain_graph=True), 5),
+                   library_ms=time_ms(lambda: torch.autograd.grad(
+                       lib_out, theta_g, g, retain_graph=True), 20),
+                   bound_ms=bb, bound_by=bby)
+    return {"pyramid_fwd": fwd_res, "pyramid_bwd": bwd_res}
+
+
+def check_shape_plain_step(img, lafs1, lafs2, device) -> dict:
+    """The first Adam step from the same fresh state through the kernels
+    and through the plain versions on the card: loss rtol 1e-5, the shapes'
+    gradients within 1e-4 of their largest magnitude.  Adam's first step is
+    lr * g / (|g| + eps), about lr * sign(g): where |g| is within that
+    tolerance of zero the two paths may step opposite ways, so those
+    elements are counted and printed, and the update must be equal (within
+    1e-5 * lr) on every other element."""
+    runs = []
+    for use_kernels in (True, False):
+        opt = shape_optimizer("SIFT", device, use_kernels)
+        st = opt.prepare(lafs1, lafs2, img, img)
+        start = [A.detach().clone() for A in st.shapes]
+        reset_launch_counts()
+        opt.step(st)
+        runs.append(dict(
+            loss=st.hist["loss"][0], counts=launch_counts(),
+            grads=torch.cat([A.grad.flatten() for A in st.shapes]),
+            update=torch.cat([(A.detach() - a).flatten()
+                              for A, a in zip(st.shapes, start)])))
+    kern, plain = runs
+    require(kern["counts"]["pyramid_fwd"] == 2
+            and kern["counts"]["pyramid_bwd"] == 2,
+            f"shape plain-step check: kernel launches {kern['counts']}")
+    require(plain["counts"]["pyramid_fwd"] == 0
+            and plain["counts"]["pyramid_bwd"] == 0,
+            f"shape plain-step check: the plain path launched "
+            f"{plain['counts']}")
+    scale = float(plain["grads"].abs().max())
+    grad_err = float((kern["grads"] - plain["grads"]).abs().max())
+    near0 = plain["grads"].abs() <= 1e-4 * scale
+    upd_err = float((kern["update"] - plain["update"])[~near0].abs().max())
+    res = dict(loss=kern["loss"], loss_plain=plain["loss"],
+               grad_rel=grad_err / scale, n_near_zero=int(near0.sum()),
+               n=int(near0.numel()), update_err=upd_err,
+               n_opposite=int((torch.sign(kern["update"])
+                               != torch.sign(plain["update"])).sum()))
+    require(abs(res["loss"] - res["loss_plain"])
+            <= 1e-5 * abs(res["loss_plain"]), f"shape plain-step loss: {res}")
+    require(res["grad_rel"] <= 1e-4, f"shape plain-step gradients: {res}")
+    require(upd_err <= 1e-5 * SHAPE_LR, f"shape plain-step update: {res}")
+    return res
+
+
+def run_shape_opt(device, seed) -> tuple:
+    """Phases 7 (B6 at the shape optimizer's shapes) and 8 (the path)."""
+    t = time.perf_counter()
+    img, lafs1, lafs2, _ = shape_problem(device)
+    opt = shape_optimizer("SIFT", device)
+    res = check_pyramid_kernels(opt, opt.prepare(lafs1, lafs2, img, img),
+                                seed)
+    torch.cuda.synchronize()
+    for r in res.values():
+        log(f"kernel {r['name']} {r['shape']}: max_abs_err {r['err']:.3g} "
+            f"ms {r['ms']:.4f} event_median_ms {r['event_ms']:.4f} "
+            f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+    b = res["pyramid_bwd"]
+    log(f"pyramid_fwd: levels {res['pyramid_fwd']['levels']}, library "
+        f"forward max |diff| {res['pyramid_fwd']['library_err']:.3g} (samples "
+        f"inside their level); pyramid_bwd: LAF cotangent largest "
+        f"|value| {b['laf_scale']:.4g}, with the buffer cotangent ms "
+        f"{b['ms_with_buffer']:.4f} (buffer max_abs_err {b['err_buf']:.3g})")
+    log(f"phase shape kernels wall_s: {time.perf_counter() - t:.3f}")
+
+    t = time.perf_counter()
+    reset_launch_counts()
+    img, lafs1, lafs2, n_det = shape_problem(device)
+    st = opt.prepare(lafs1, lafs2, img, img)
+    per_step = []
+    for i in range(SHAPE_STEPS):
+        if i == SHAPE_TIMED_FROM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = (cuda_patches.launches_pyramid,
+                  cuda_patches.launches_pyramid_bwd)
+        opt.step(st)
+        per_step.append((cuda_patches.launches_pyramid - before[0],
+                         cuda_patches.launches_pyramid_bwd - before[1]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (SHAPE_STEPS - SHAPE_TIMED_FROM)
+    counts = launch_counts()
+    log(f"shape-opt path launches (detection + {SHAPE_STEPS} steps): "
+        f"{json.dumps(counts)}")
+    require(all(c == (2, 2) for c in per_step),
+            f"B6 launches per step (forward, backward) not (2, 2): "
+            f"{sorted(set(per_step))}")
+    for name in ("blur", "detect", "topk"):
+        require(counts[name] > 0, f"kernel {name} not launched")
+    h = st.hist
+    n_pairs = len(lafs1)
+    require(n_pairs >= 2, f"{n_pairs} GT pairs")
+    require(bool(np.isfinite(h["loss"]).all()), "shape-opt loss not finite")
+    require(h["loss"][-1] < h["loss"][0]
+            and h["shape_diff"][-1] < h["shape_diff"][0],
+            f"shape-opt: loss {h['loss'][0]} -> {h['loss'][-1]}, shape "
+            f"diff {h['shape_diff'][0]} -> {h['shape_diff'][-1]}")
+    log(f"shape opt: {n_det} detections -> {n_pairs} GT pairs; loss "
+        f"{h['loss'][0]:.6f} -> {h['loss'][-1]:.6f}, shape diff "
+        f"{h['shape_diff'][0]:.6f} -> {h['shape_diff'][-1]:.6f} over "
+        f"{SHAPE_STEPS} steps (SIFT, HardNegC, Adam lr {SHAPE_LR})")
+    log(f"shape_opt_ms_per_step: {ms:.3f} (host clock over steps "
+        f"{SHAPE_TIMED_FROM}..{SHAPE_STEPS - 1}, synchronized at both ends)")
+    ps = check_shape_plain_step(img, lafs1, lafs2, device)
+    log(f"shape plain-path first step: loss {ps['loss']:.7f} vs "
+        f"{ps['loss_plain']:.7f}; gradients max |diff| / max |value| "
+        f"{ps['grad_rel']:.3g}; {ps['n_near_zero']} of {ps['n']} gradient "
+        f"elements within 1e-4 of the largest of zero; update max |diff| "
+        f"elsewhere {ps['update_err']:.3g}; steps of opposite sign "
+        f"{ps['n_opposite']}")
+
+    reset_launch_counts()
+    opt_tf = shape_optimizer("TFeat", device)
+    st_tf = opt_tf.prepare(lafs1, lafs2, img, img)
+    for _ in range(SHAPE_TFEAT_STEPS):
+        opt_tf.step(st_tf)
+    tf_counts = launch_counts()
+    require(tf_counts["pyramid_fwd"] == 2 * SHAPE_TFEAT_STEPS
+            and tf_counts["pyramid_bwd"] == 2 * SHAPE_TFEAT_STEPS,
+            f"TFeat shape opt launches {tf_counts}")
+    lt = st_tf.hist["loss"]
+    require(bool(np.isfinite(lt).all())
+            and bool(np.isfinite(st_tf.hist["lafs1"][-1]).all()),
+            f"TFeat shape opt not finite: {lt}")
+    log(f"shape opt with TFeat, {SHAPE_TFEAT_STEPS} steps: loss "
+        f"{lt[0]:.6f} -> {lt[-1]:.6f}, shape diff "
+        f"{st_tf.hist['shape_diff'][0]:.6f} -> "
+        f"{st_tf.hist['shape_diff'][-1]:.6f}")
+    log(f"phase shape opt wall_s: {time.perf_counter() - t:.3f}")
+    return res, dict(counts=counts, ms=ms)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the flagship's fast mode (kernel B4-bf16)
+# ---------------------------------------------------------------------------
+
+def run_fast(aff, desc, imgs, f32_outs, f32_ms, device) -> tuple:
+    t = time.perf_counter()
+    det = ScaleSpaceAffinePatchExtractor(FAST_CONFIG, shape_net=aff,
+                                         desc_net=desc, device=device)
+    det_plain = ScaleSpaceAffinePatchExtractor(
+        FAST_CONFIG, shape_net=aff, desc_net=desc, device=device,
+        use_kernels=False)
+    with torch.inference_mode():
+        res = check_patch_sites(det, torch.from_numpy(imgs[0]).to(device),
+                                bf16=True)
+    torch.cuda.synchronize()
+    for r in res.values():
+        log(f"kernel {r['name']} {r['shape']}: max_abs_err {r['err']:.3g} "
+            f"ms {r['ms']:.4f} event_median_ms {r['event_ms']:.4f} "
+            f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+    main_res = phase_main(det, det_plain, imgs, FAST_EXTRACTION_KERNELS,
+                          np.float16)
+    for i, (out, ref) in enumerate(zip(main_res["outs"], f32_outs)):
+        only_fast = np.setdiff1d(out["orig_idx"], ref["orig_idx"]).size
+        only_f32 = np.setdiff1d(ref["orig_idx"], out["orig_idx"]).size
+        log(f"image {i}: fast against float32 keypoint sets: "
+            f"{'equal' if only_fast + only_f32 == 0 else 'differ'}, "
+            f"{only_fast} only in fast mode, {only_f32} only in float32 "
+            "(eig-ratio/boundary gate flips on bf16 shapes and their "
+            "re-top-k refills)")
+    per_img, per_img_plain = time_per_image((det, det_plain), imgs)
+    ms = float(np.median(per_img))
+    log(f"fast_ms_per_image: median {ms:.3f} (all "
+        f"{[round(x, 3) for x in per_img]}); plain fast path median "
+        f"{np.median(per_img_plain):.3f}; float32 median {f32_ms:.3f}")
+    log(f"phase fast wall_s: {time.perf_counter() - t:.3f}")
+    return res, main_res["counts"], ms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -788,13 +1179,11 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} x{torch.cuda.device_count()}, torch "
-        f"{torch.__version__}, cuda {torch.version.cuda}; TF32 off for "
-        "cuDNN convolutions and matmuls")
+        f"{torch.__version__}, cuda {torch.version.cuda}; the package's "
+        "entry points run with TF32 off for cuDNN convolutions and matmuls")
 
     t = time.perf_counter()
     build.library()
@@ -827,21 +1216,17 @@ def main(argv=None) -> int:
     log(f"phase main wall_s: {time.perf_counter() - t:.3f}")
 
     t = time.perf_counter()
-    per_img, per_img_plain = [], []
-    for _ in range(2):
-        for img in imgs:
-            for d, acc in ((det, per_img), (det_plain, per_img_plain)):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                d(img, describe=True)
-                torch.cuda.synchronize()
-                acc.append((time.perf_counter() - t1) * 1e3)
-    log(f"end_to_end_ms_per_image: median {np.median(per_img):.3f} "
+    per_img, per_img_plain = time_per_image((det, det_plain), imgs)
+    f32_ms = float(np.median(per_img))
+    log(f"end_to_end_ms_per_image: median {f32_ms:.3f} "
         f"(all {[round(x, 3) for x in per_img]}); plain path median "
         f"{np.median(per_img_plain):.3f}")
     log(f"phase times wall_s: {time.perf_counter() - t:.3f}")
 
     train_res, tr = run_training(args.seed, device)
+    shape_res, so = run_shape_opt(device, args.seed)
+    fast_res, fast_counts, _ = run_fast(aff, desc, imgs, main_res["outs"],
+                                        f32_ms, device)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -852,8 +1237,10 @@ def main(argv=None) -> int:
     # (result, counter, source, TPU kernel).  B4 at its two extraction
     # sites as before (launches: both sites together); B5 forward at the
     # augment warps (PS 64) and at the rewarp (PS 32), each with its site's
-    # launches; B5 backward.  Launches: the extraction main path's counts
-    # for B1-B4, the training path's for B5.
+    # launches; B5 backward; B6 forward and backward; B4-bf16 at its two
+    # sites (launches: both together).  Launches: the extraction main
+    # path's counts for B1-B4, the training path's for B5, the shape
+    # optimization path's for B6, the fast extraction path's for B4-bf16.
     src = {"blur": ("affnet_tpu_torch/csrc/blur.cu",
                     "affnet_tpu/ops/pallas_blur.py:60"),
            "detect": ("affnet_tpu_torch/csrc/detect.cu",
@@ -872,6 +1259,17 @@ def main(argv=None) -> int:
     rows.append((train_res["batched_bwd"], tr["counts"]["batched_bwd"],
                  "affnet_tpu_torch/csrc/patches_bwd.cu",
                  "affnet_tpu/ops/pallas_patches.py:702"))
+    rows.append((shape_res["pyramid_fwd"], so["counts"]["pyramid_fwd"],
+                 "affnet_tpu_torch/csrc/patches.cu",
+                 "affnet_tpu/ops/pallas_patches.py:94 via :729"))
+    rows.append((shape_res["pyramid_bwd"], so["counts"]["pyramid_bwd"],
+                 "affnet_tpu_torch/csrc/patches_bwd.cu",
+                 "affnet_tpu/ops/pallas_patches.py:757"))
+    for r in fast_res.values():
+        rows.append((r, fast_counts["patches_bf16"],
+                     "affnet_tpu_torch/csrc/patches.cu",
+                     "affnet_tpu/ops/pallas_patches.py:94 (mxu_dtype=bf16, "
+                     ":214-247)"))
     kernels = [{
         "name": r["name"], "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,

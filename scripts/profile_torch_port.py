@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch/CUDA port's extraction or training
-path.
+"""Where the time goes in the PyTorch/CUDA port's extraction, training or
+shape-optimization path.
 
 ``--path extract`` (default) runs chip_smoke.py's extraction configuration
 (1080x1920, 2000 features, AffNetFast + HardTFeatNet, float32, TF32 off) on
-seeded images; ``--path train`` runs chip_smoke.py's training
-configuration (AffNetFast at batch 1024 against HardTFeatNet, HardNegC,
-SGD) for a few steps after warm-up.  Under torch.profiler it prints: wall
-ms per image or step, device-busy ms (the union of kernel intervals on the
-card), the idle share, device time by kind (convolutions, the B5 sampler,
-BatchNorm, other) and by kernel name.  Writes the Chrome trace to --trace
-(default port_trace.json).
+seeded images, ``--path fast`` the same in fast mode (bf16 nets and
+sampler, float16 descriptors); ``--path train`` runs chip_smoke.py's
+training configuration (AffNetFast at batch 1024 against HardTFeatNet,
+HardNegC, SGD) for a few steps after warm-up; ``--path shape`` its
+shape-optimization configuration (200 LAF pairs on the 640x800 fixture,
+SIFT, HardNegC, Adam lr 2.0) for --steps steps after 10 of warm-up.  Under
+torch.profiler it prints: wall ms per image or step, device-busy ms (the
+union of kernel intervals on the card), the idle share, device time by
+kind (convolutions, the patch samplers, BatchNorm, copies, other) and by
+kernel name.  Writes the Chrome trace to --trace (default
+port_trace.json).
 
-    python3 scripts/profile_torch_port.py [--path extract|train] [--seed 0]
-        [--images 2] [--steps 5] [--trace F]
+    python3 scripts/profile_torch_port.py [--path extract|fast|train|shape]
+        [--seed 0] [--images 2] [--steps 5] [--trace F]
 
 Needs a CUDA card; imports torch, numpy and the standard library only.
 """
@@ -62,7 +66,7 @@ def busy_ms(events) -> float:
 def device_time_by_kind(events) -> dict:
     """Device ms by kind of kernel, from the kernel names."""
     kinds = {"conv": ("conv", "cudnn", "xmma", "gemm", "wgrad", "dgrad",
-                      "implicit", "winograd", "fft"),
+                      "implicit", "winograd", "fft", "cutlass"),
              "sampler": ("sample_patches",),
              "batchnorm": ("batch_norm", "bn_"),
              "copy": ("memcpy", "memset")}
@@ -107,10 +111,30 @@ def profile_train(args):
     return prof, wall, args.steps, "step"
 
 
+def profile_shape(args):
+    """(profile, wall ms per step) of --steps shape-optimization steps."""
+    img, lafs1, lafs2, _ = chip_smoke.shape_problem("cuda")
+    opt = chip_smoke.shape_optimizer("SIFT", "cuda")
+    st = opt.prepare(lafs1, lafs2, img, img)
+    for _ in range(10):                              # build + warm up
+        opt.step(st)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            opt.step(st)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / args.steps
+    return prof, wall, args.steps, "step"
+
+
 def profile_extract(args):
     """(profile, wall ms per image) of --images extractions."""
     aff, desc = chip_smoke.pretrained_nets()
-    det = ScaleSpaceAffinePatchExtractor(chip_smoke.CONFIG, shape_net=aff,
+    config = chip_smoke.FAST_CONFIG if args.path == "fast" \
+        else chip_smoke.CONFIG
+    det = ScaleSpaceAffinePatchExtractor(config, shape_net=aff,
                                          desc_net=desc, device="cuda")
     imgs = chip_smoke.make_images(args.seed, args.images)
     det(imgs[0], describe=True)                      # build + warm up
@@ -127,7 +151,7 @@ def profile_extract(args):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("extract", "train"),
+    ap.add_argument("--path", choices=("extract", "fast", "train", "shape"),
                     default="extract")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--images", type=int, default=2)
@@ -138,9 +162,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
         return 2
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    run = profile_train if args.path == "train" else profile_extract
+    # TF32 stays off: the extractor and the training step pin float32 math
+    # themselves (affnet_tpu_torch.utils.float32_math).
+    run = {"train": profile_train, "shape": profile_shape}.get(
+        args.path, profile_extract)
     prof, wall, count, unit = run(args)
     busy = busy_ms(prof.events()) / count
     print(f"device: {torch.cuda.get_device_name(0)}")

@@ -10,10 +10,20 @@ import numpy as np
 import pytest
 import torch
 
+import os
+
+from affnet_tpu_torch import load_pretrained
+from affnet_tpu_torch.detector import (DetectorConfig,
+                                       ScaleSpaceAffinePatchExtractor)
+from affnet_tpu_torch.models import AffNetFast, HardTFeatNet, params_from_jax
 from affnet_tpu_torch.ops import (batched_sampler, cuda_blur, cuda_detect,
                                   cuda_patches, cuda_topk)
-from affnet_tpu_torch.ops.patches import extract_patches_batched
+from affnet_tpu_torch.ops.patches import (extract_patches_batched,
+                                          extract_patches_from_flat_pyramid)
+from affnet_tpu_torch.ops.pyramid_sampler import make_pyramid_sampler_diff
 from affnet_tpu_torch.ops.scalespace import gauss_kernel_1d
+
+FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 
 pytestmark = pytest.mark.cuda
 
@@ -156,3 +166,151 @@ def test_batched_backward_nonfinite_lafs_write_nothing(dev):
     batched_sampler.sample_batched(im, lafs).sum().backward()
     assert torch.all(im.grad[1:3] == 0)
     assert torch.isfinite(im.grad).all() and im.grad[0].abs().sum() > 0
+
+
+def _pyramid_inputs(dev, n=60, seed=0, scale=0.3):
+    """A three-level flat pyramid buffer, its tables, LAFs and levels."""
+    g = torch.Generator().manual_seed(seed)
+    buf = torch.rand(175, 160, generator=g) * 255
+    tables = [torch.tensor(v, dtype=torch.int32)
+              for v in ([0, 100, 150], [100, 50, 25], [160, 80, 40])]
+    A = scale * (2 * torch.rand((n, 2, 2), generator=g) - 1)
+    t = 1.2 * torch.rand((n, 2, 1), generator=g) - 0.1
+    lafs = torch.cat([A, t], 2)
+    lvl = torch.randint(0, 3, (n,), generator=g, dtype=torch.int32)
+    return (buf.to(dev), [x.to(dev) for x in tables], lafs.to(dev),
+            lvl.to(dev))
+
+
+@pytest.mark.parametrize("ps,align", [(32, False), (19, True)])
+def test_bf16_patches_kernel(dev, ps, align):
+    """B4-bf16 equals its plain version bit for bit and counts one bf16
+    launch (and no float32 one)."""
+    buf, tables, lafs, lvl = _pyramid_inputs(dev)
+    before = (cuda_patches.launches, cuda_patches.launches_bf16)
+    got, _ = cuda_patches.extract_patches_pyramid(
+        buf, lafs, lvl, *tables, ps=ps, align_corners=align, bf16=True)
+    assert (cuda_patches.launches, cuda_patches.launches_bf16) == (
+        before[0], before[1] + 1)
+    ref, _ = cuda_patches.extract_patches_pyramid(
+        buf, lafs, lvl, *tables, ps=ps, align_corners=align,
+        use_kernel=False, bf16=True)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    f32, _ = cuda_patches.extract_patches_pyramid(
+        buf, lafs, lvl, *tables, ps=ps, align_corners=align)
+    assert 0 < float((got - f32).abs().max()) < 2.5
+
+
+@pytest.mark.parametrize("ps,align", [(32, False), (19, True)])
+def test_pyramid_forward_kernel(dev, ps, align):
+    """B6 forward (B4's kernel on the pyramid's table) equals the plain
+    version bit for bit and counts one B6 forward launch."""
+    buf, tables, lafs, lvl = _pyramid_inputs(dev)
+    sample = make_pyramid_sampler_diff(*tables, ps, align)
+    before = (cuda_patches.launches, cuda_patches.launches_pyramid)
+    got = sample(buf, lafs, lvl)
+    assert (cuda_patches.launches, cuda_patches.launches_pyramid) == (
+        before[0], before[1] + 1)
+    ref = extract_patches_from_flat_pyramid(buf, lafs, lvl, *tables, ps=ps,
+                                            align_corners=align)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("ps,align,scale", [(32, False, 0.3),
+                                            (19, True, 0.3),
+                                            (32, False, 3.0)])
+def test_pyramid_backward_kernel(dev, ps, align, scale):
+    """B6 backward against autograd of the plain version, at the levels the
+    forward used: LAF cotangent rtol 1e-4 / atol 1e-4 of its largest
+    magnitude (another summation order), buffer cotangent rtol 1e-5 / atol
+    1e-5 of its largest magnitude (atomics, many samples per pixel).  The
+    LAF cotangent is the same from run to run."""
+    buf, tables, lafs, lvl = _pyramid_inputs(dev, scale=scale)
+    g = 2 * torch.rand((lafs.shape[0], ps, ps), device=dev) - 1
+
+    def grads(fn):
+        b = buf.clone().requires_grad_(True)
+        lf = lafs.clone().requires_grad_(True)
+        (fn(b, lf) * g).sum().backward()
+        return b.grad, lf.grad
+
+    sample = make_pyramid_sampler_diff(*tables, ps, align)
+    before = cuda_patches.launches_pyramid_bwd
+    gb, gl = grads(lambda b, lf: sample(b, lf, lvl))
+    assert cuda_patches.launches_pyramid_bwd == before + 1
+    rb, rl = grads(lambda b, lf: extract_patches_from_flat_pyramid(
+        b, lf, lvl, *tables, ps=ps, align_corners=align))
+    torch.testing.assert_close(gl, rl, rtol=1e-4,
+                               atol=1e-4 * float(rl.abs().max()))
+    torch.testing.assert_close(gb, rb, rtol=1e-5,
+                               atol=1e-5 * float(rb.abs().max()))
+    _, gl2 = grads(lambda b, lf: sample(b, lf, lvl))
+    assert torch.equal(gl, gl2)
+
+
+def test_pyramid_backward_only_what_is_needed(dev):
+    """Shape optimization asks for the LAF cotangent only; the level index
+    is an integer tensor and gets none."""
+    buf, tables, lafs, lvl = _pyramid_inputs(dev)
+    sample = make_pyramid_sampler_diff(*tables, 32, False)
+    lf = lafs.clone().requires_grad_(True)
+    sample(buf, lf, lvl).sum().backward()
+    assert buf.grad is None and lf.grad is not None
+    assert not lvl.requires_grad
+    b = buf.clone().requires_grad_(True)
+    sample(b, lafs, lvl).sum().backward()
+    assert torch.isfinite(b.grad).all() and float(b.grad.abs().sum()) > 0
+
+
+def _extractor(dev, **kw):
+    aff, desc = AffNetFast(), HardTFeatNet()
+    aff.load_state_dict(params_from_jax(load_pretrained("AffNetFast")))
+    desc.load_state_dict(params_from_jax(load_pretrained("HardTFeatNet")))
+    return ScaleSpaceAffinePatchExtractor(
+        DetectorConfig(num_features=256, border=5, mr_size=5.192,
+                       num_baum_iters=1, **kw),
+        shape_net=aff, desc_net=desc, device=dev)
+
+
+def test_extractor_float32_under_default_flags(dev):
+    """The precision policy: with PyTorch's default flags (TF32 on for cuDNN
+    convolutions) the extractor's outputs equal those with TF32 off, and the
+    caller's flags are restored."""
+    img = np.load(os.path.join(FIX, "detector_golden_fullres.npz"))["img"]
+    det = _extractor(dev)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        outs = []
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            outs.append(det(img, describe=True))
+            assert torch.backends.cudnn.allow_tf32 is flag
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    for k in outs[1]:
+        np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
+
+
+def test_fast_extractor_matches_plain_fast(dev):
+    """Fast mode through B4-bf16 at both sites against its plain version on
+    the card: keypoints identical, patches within 1e-3 of their largest
+    magnitude (chip_smoke.py's rule for the float32 path); descriptors
+    float16 and unit norm."""
+    img = np.load(os.path.join(FIX, "detector_golden_fullres.npz"))["img"]
+    kw = dict(fast=True, desc_dtype="float16")
+    before = cuda_patches.launches_bf16
+    got = _extractor(dev, **kw)(img, describe=True)
+    assert cuda_patches.launches_bf16 == before + 2
+    ref = _extractor(dev, **kw)
+    ref.use_kernels = False
+    ref = ref(img, describe=True)
+    np.testing.assert_array_equal(got["orig_idx"], ref["orig_idx"])
+    np.testing.assert_allclose(got["patches"], ref["patches"], rtol=0,
+                               atol=1e-3 * np.abs(ref["patches"]).max())
+    assert got["descs"].dtype == np.float16
+    norms = np.linalg.norm(got["descs"].astype(np.float32), axis=1)
+    assert np.abs(norms - 1.0).max() < 1e-3

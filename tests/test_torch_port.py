@@ -22,6 +22,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "import affnet_tpu_torch.models, affnet_tpu_torch.ops\n"
         "import affnet_tpu_torch.train, affnet_tpu_torch.data\n"
         "import affnet_tpu_torch.ops.batched_sampler\n"
+        "import affnet_tpu_torch.ops.pyramid_sampler\n"
+        "import affnet_tpu_torch.shape_opt, affnet_tpu_torch.reproj\n"
+        "import affnet_tpu_torch.models.sift, affnet_tpu_torch.cli\n"
+        "import affnet_tpu_torch.cli.optimize_shapes\n"
+        "import affnet_tpu_torch.cli.hesaffnet\n"
         "import affnet_tpu_torch.kernels.build\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -46,14 +51,24 @@ def test_sources_have_no_pytorch_headers():
 
 
 def test_one_nvcc_call_into_hashed_build_dir():
+    """One nvcc call per source (started together), one link into the
+    hashed library path."""
     out = build.library_path()
     assert os.path.dirname(out) == build.BUILD_DIR
     assert build.source_hash() in os.path.basename(out)
-    cmd = build.nvcc_command("/x/nvcc", out)
-    assert cmd[0] == "/x/nvcc"
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    objs = []
+    for src in build.sources():
+        cmd = build.compile_command("/x/nvcc", src, src + ".o")
+        assert cmd[0] == "/x/nvcc" and "-c" in cmd
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert [c for c in cmd if c.endswith(".cu")] == [src]
+        assert cmd[cmd.index("-o") + 1] == src + ".o"
+        objs.append(src + ".o")
+    cmd = build.link_command("/x/nvcc", objs, out)
+    assert cmd[0] == "/x/nvcc" and "-shared" in cmd
+    assert "arch=compute_90a,code=sm_90a" in cmd
     assert cmd[cmd.index("-o") + 1] == out
-    assert sorted(c for c in cmd if c.endswith(".cu")) == build.sources()
+    assert cmd[-len(objs):] == objs
     assert set(build.SIGNATURES) == {
         "launch_blur", "launch_detect_octave", "launch_row_topm",
         "launch_sample_patches", "launch_sample_patches_bwd"}
