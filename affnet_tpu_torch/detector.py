@@ -2,14 +2,31 @@
 
 Counterpart of ``affnet_tpu/detector.py`` for the extraction path: image ->
 Gaussian pyramid (B1) -> per-octave det-Hessian + 3x3x3 NMS + soft-argmax
-(B2) -> exact global top-k (B3) -> AffNet shape iterations at the "shape"
-patch site (B4) -> eig-ratio/boundary gate and re-top-k -> extent sort and
+(B2) -> exact global top-k (B3; threshold mode: every survivor) -> AffNet
+shape iterations at the "shape" patch site (B4) -> eig-ratio/boundary gate
+and re-top-k -> orientation at the "ori" site (B4) -> extent sort and
 scale-aware level selection -> descriptor patches at the "desc" site (B4)
 -> descriptor CNN.
 
 The stages keep the JAX package's fixed-size arrays plus validity mask, so
-the two packages can be compared stage by stage.  Top-k mode without
-orientation; threshold mode and the orientation stage are later slices.
+the two packages can be compared stage by stage.
+
+Two modes, as in JAX.  Top-k mode (``th=None``) keeps the
+``num_features`` strongest keypoints, in descending response order.
+Threshold mode (``th`` set; the HesAffNet program's ``th=-1``) subtracts
+``th`` from the responses before NMS (kernel B2) and keeps every NMS
+survivor that passes the shape gate, in scan order.  JAX sizes its arrays
+to a static cap and, when the survivors exceed it, compiles again with the
+next power of two, so its output always holds every survivor; the port is
+eager and takes the survivors' indices with ``torch.nonzero`` (scan order,
+one host read of their count per image), which gives the same output
+without padding and without a top-k.  ``max_keypoints`` and the counts of
+``DetectorConfig`` therefore bind only top-k mode here.
+
+``do_ori`` runs the orientation stage at the "ori" patch site (B4, or
+B4-bf16 in fast mode): the orientation net's rotation composes with each
+shape on the right.  The handcrafted shape and orientation estimators are
+not ported: the extractor needs the nets for those stages.
 
 ``fast=True`` is the JAX package's fast mode, which its flagship runs: the
 shape and descriptor nets run their activation chains in bf16
@@ -46,7 +63,7 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
-    """The JAX ``DetectorConfig`` fields the port supports (top-k mode)."""
+    """The JAX ``DetectorConfig`` fields the port supports."""
     num_features: int = 500
     border: int = 16
     patch_size: int = 32           # descriptor patch size
@@ -54,19 +71,30 @@ class DetectorConfig:
     n_levels: int = 3
     num_baum_iters: int = 0
     init_sigma: float = 1.6
-    max_keypoints: int = 8192      # cap on the prefilter count
+    th: Optional[float] = None     # not None: threshold mode
+    max_keypoints: int = 8192      # cap on the top-k counts
     align_corners: bool = False
     py2: bool = False
     fast: bool = False             # bf16 patch sampling and nets
     desc_dtype: Optional[str] = None   # dtype of the returned descriptors
 
+    @property
+    def threshold_mode(self) -> bool:
+        return self.th is not None
+
+    @property
+    def effective_th(self) -> float:
+        return float(self.th) if self.th is not None else 0.0
+
     def prefilter_count(self) -> int:
-        """Candidates kept after detection (before the shape stage)."""
+        """Top-k mode's candidates kept after detection (before the shape
+        stage).  Threshold mode keeps every survivor (module docstring)."""
         if self.num_baum_iters > 0:
             return min(int(1.5 * self.num_features), self.max_keypoints)
         return min(self.num_features, self.max_keypoints)
 
     def final_count(self) -> int:
+        """Top-k mode's keypoints kept after the shape gate."""
         return min(self.num_features, self.max_keypoints)
 
 
@@ -114,18 +142,19 @@ class _Plan:
 class ScaleSpaceAffinePatchExtractor:
     """Image -> (LAFs, responses[, patches, descriptors]).
 
-    ``shape_net`` and ``desc_net`` are ``nn.Module``s on (N, PS, PS)
-    patches (models/zoo.py), moved to ``device``; with ``config.fast`` the
-    extractor keeps bf16 copies of them (``with_dtype``).
-    ``use_kernels=False`` runs every stage through the kernels' plain
-    versions, on any device: it is the yardstick the kernels are held
-    against.
+    ``shape_net``, ``ori_net`` and ``desc_net`` are ``nn.Module``s on
+    (N, PS, PS) patches (models/zoo.py), moved to ``device``; with
+    ``config.fast`` the extractor keeps bf16 copies of them
+    (``with_dtype``).  ``use_kernels=False`` runs every stage through the
+    kernels' plain versions, on any device (the nets too, under the flat
+    layout): it is the yardstick the kernels are held against.
     """
 
     def __init__(self, config: DetectorConfig = DetectorConfig(),
                  shape_net: Optional[nn.Module] = None,
                  desc_net: Optional[nn.Module] = None,
-                 device="cuda", use_kernels: bool = True):
+                 device="cuda", use_kernels: bool = True,
+                 ori_net: Optional[nn.Module] = None):
         if config.num_baum_iters > 0 and shape_net is None:
             raise ValueError("num_baum_iters > 0 needs a shape_net (the "
                              "handcrafted estimator is not ported yet)")
@@ -140,6 +169,7 @@ class ScaleSpaceAffinePatchExtractor:
             return net.to(self.device).eval()
 
         self.shape_net = prepare(shape_net)
+        self.ori_net = prepare(ori_net)
         self.desc_net = prepare(desc_net)
         self.use_kernels = use_kernels
         self._plans: Dict[Tuple[int, int], _Plan] = {}
@@ -167,7 +197,8 @@ class ScaleSpaceAffinePatchExtractor:
             octmap = torch.zeros((h, w), dtype=img.dtype, device=img.device)
             bmask = border_mask(h, w, int(cfg.mr_size), device=img.device,
                                 dtype=img.dtype)
-            maps = detect_octave(pyr[o], plan.sigmas[o], 0.0, use_kernel=uk)
+            maps = detect_octave(pyr[o], plan.sigmas[o], cfg.effective_th,
+                                 use_kernel=uk)
             for nmsed_raw, sc, yy, xx in maps:
                 nmsed, octmap = update_octave_map(octmap, nmsed_raw * bmask)
                 resp_chunks.append(nmsed.reshape(-1))
@@ -178,12 +209,22 @@ class ScaleSpaceAffinePatchExtractor:
                 torch.cat(y_chunks), torch.cat(x_chunks))
 
     def _multiscale_detect(self, img: Tensor, p: _Plan) -> Dict[str, Tensor]:
-        """Pyramid + per-octave detection + global top-k."""
+        """Pyramid + per-octave detection + global top-k; threshold mode
+        keeps every survivor in scan order instead (none: one invalid
+        candidate, so the stages keep their shapes)."""
         cfg = self.cfg
         flat, resp_all, sc_all, y_all, x_all = self._responses(img, p)
-        k = min(cfg.prefilter_count(), p.total)
-        vals, idxs, valid = masked_topk(resp_all, k,
-                                        use_kernel=self.use_kernels)
+        survivor = resp_all > 0
+        n_detected = survivor.sum()
+        if cfg.threshold_mode:
+            idxs = torch.nonzero(survivor)[:, 0]
+            if idxs.numel() == 0:
+                idxs = torch.zeros(1, dtype=idxs.dtype, device=idxs.device)
+            vals, valid = resp_all[idxs], survivor[idxs]
+        else:
+            vals, idxs, valid = masked_topk(
+                resp_all, min(cfg.prefilter_count(), p.total),
+                use_kernel=self.use_kernels)
         sc_y_x = torch.stack([sc_all[idxs], y_all[idxs], x_all[idxs]], -1)
         det_lvl = torch.searchsorted(p.det_offsets, idxs, right=True) - 1
         return {
@@ -195,7 +236,7 @@ class ScaleSpaceAffinePatchExtractor:
             "ext_level": p.ext_levels[det_lvl],
             "oct_idx": p.oct_ids[det_lvl],
             "level_idx": p.level_ids[det_lvl],
-            "n_detected": (resp_all > 0).sum(),
+            "n_detected": n_detected,
         }
 
     def _affine_shape(self, cand: Dict[str, Tensor],
@@ -215,7 +256,7 @@ class ScaleSpaceAffinePatchExtractor:
                 ps=self.shape_net.ps, align_corners=cfg.align_corners,
                 use_kernel=self.use_kernels, bf16=cfg.fast)
             overflow += ovf
-            A = self.shape_net(patches)
+            A = self.shape_net(patches, use_kernels=self.use_kernels)
             base_A = A @ base_A
             lafs_cur = torch.cat([base_A @ lafs0[:, :, 0:2],
                                   lafs0[:, :, 2:]], dim=2)
@@ -224,9 +265,14 @@ class ScaleSpaceAffinePatchExtractor:
         gate = ((ratio < 6.0) & (ratio > 1.0 / 6.0)
                 & check_touch_boundary(lafs_cur) & cand["valid"])
         resp_masked = cand["resp"] * gate.to(cand["resp"].dtype)
-        resp_out, sel, valid_out = masked_topk(
-            resp_masked, min(cfg.final_count(), n),
-            use_kernel=self.use_kernels)
+        if cfg.threshold_mode:
+            # Keep every survivor that passes the gate; no re-top-k.
+            sel = torch.arange(n, device=lafs0.device)
+            resp_out, valid_out = resp_masked, gate & (cand["resp"] > 0)
+        else:
+            resp_out, sel, valid_out = masked_topk(
+                resp_masked, min(cfg.final_count(), n),
+                use_kernel=self.use_kernels)
         # Gate-failed LAFs can be arbitrarily elongated; zero them.
         lafs_cur = torch.where(gate[:, None, None], lafs_cur,
                                torch.zeros_like(lafs_cur))
@@ -234,6 +280,22 @@ class ScaleSpaceAffinePatchExtractor:
                ("orig_idx", "ext_level", "oct_idx", "level_idx")}
         return {**cand, **out, "resp": resp_out, "lafs": lafs_cur[sel],
                 "valid": valid_out, "n_overflow": overflow}
+
+    def _orientation(self, cand: Dict[str, Tensor],
+                     p: _Plan) -> Dict[str, Tensor]:
+        """Orientation-net patches at the extraction level (the "ori"
+        site), and the net's rotation composed on the right of each
+        shape."""
+        cfg = self.cfg
+        patches, ovf = extract_patches_pyramid(
+            cand["flat"], cand["lafs"], cand["ext_level"], *p.tables,
+            ps=self.ori_net.ps, align_corners=cfg.align_corners,
+            use_kernel=self.use_kernels, bf16=cfg.fast)
+        rot = self.ori_net(patches, use_kernels=self.use_kernels)
+        lafs = torch.cat([cand["lafs"][:, :, :2] @ rot,
+                          cand["lafs"][:, :, 2:]], dim=2)
+        return {**cand, "lafs": lafs,
+                "n_overflow": cand.get("n_overflow", 0) + ovf}
 
     def _sort_for_describe(self, cand: Dict[str, Tensor], p: _Plan,
                            h: int, w: int) -> Dict[str, Tensor]:
@@ -258,7 +320,7 @@ class ScaleSpaceAffinePatchExtractor:
             cand["flat"], cand["lafs"], cand["desc_level"], *p.tables,
             ps=self.cfg.patch_size, align_corners=self.cfg.align_corners,
             use_kernel=self.use_kernels, bf16=self.cfg.fast)
-        descs = self.desc_net(patches)
+        descs = self.desc_net(patches, use_kernels=self.use_kernels)
         if self.cfg.desc_dtype is not None:
             descs = descs.to(getattr(torch, self.cfg.desc_dtype))
         return patches, descs, ovf
@@ -268,10 +330,14 @@ class ScaleSpaceAffinePatchExtractor:
     # ------------------------------------------------------------------
 
     @float32_math()
-    def run(self, img: Tensor, describe: bool = False) -> Dict[str, Tensor]:
+    def run(self, img: Tensor, describe: bool = False,
+            do_ori: bool = False) -> Dict[str, Tensor]:
         """The whole pipeline on an (H, W) float32 tensor on ``device``:
         fixed-size outputs plus ``valid`` and ``restore``, on the device."""
         cfg = self.cfg
+        if do_ori and self.ori_net is None:
+            raise ValueError("do_ori needs an ori_net (the handcrafted "
+                             "orientation estimator is not ported yet)")
         h, w = img.shape
         p = self._plan(h, w)
         cand = self._multiscale_detect(img, p)
@@ -280,6 +346,8 @@ class ScaleSpaceAffinePatchExtractor:
                                   cand["lafs"][:, :, 2:]], dim=2)
         if cfg.num_baum_iters > 0:
             cand = self._affine_shape(cand, p)
+        if do_ori:
+            cand = self._orientation(cand, p)
         if describe:
             cand = self._sort_for_describe(cand, p, h, w)
         out = {k: cand[k] for k in ("resp", "valid", "orig_idx", "oct_idx",
@@ -293,15 +361,16 @@ class ScaleSpaceAffinePatchExtractor:
         return out
 
     @torch.inference_mode()
-    def __call__(self, img, describe: bool = False
+    def __call__(self, img, describe: bool = False, do_ori: bool = False
                  ) -> Dict[str, np.ndarray]:
         """Run the pipeline on an (H, W) grayscale image (numpy or tensor).
-        Returns host arrays of the VALID keypoints in reference (top-k)
-        order, plus ``n_detected``, like the JAX extractor."""
+        Returns host arrays of the VALID keypoints in reference order (top-k
+        order; scan order in threshold mode), plus ``n_detected``, like the
+        JAX extractor."""
         img = torch.as_tensor(np.asarray(img, np.float32)
                               if not torch.is_tensor(img) else img,
                               dtype=torch.float32).to(self.device)
-        out = self.run(img.contiguous(), describe=describe)
+        out = self.run(img.contiguous(), describe=describe, do_ori=do_ori)
         n_detected = int(out.pop("n_detected"))
         n_overflow = out.pop("n_overflow")
         if n_overflow:

@@ -30,6 +30,37 @@ def eig2x2_vals(A: Tensor) -> Tuple[Tensor, Tensor]:
     return l1, l2
 
 
+def svd2x2(As: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Closed-form batched SVD of (..., 2, 2) matrices through atan2 of the
+    Gram matrices: (U, S, V) with As = U @ S @ V^T, the reference's
+    ``bsvd2x2`` convention."""
+    AsT = As.transpose(-1, -2)
+    Su = As @ AsT
+    phi = 0.5 * torch.atan2(Su[..., 0, 1] + Su[..., 1, 0] + 1e-12,
+                            Su[..., 0, 0] - Su[..., 1, 1] + 1e-12)
+    cphi, sphi = torch.cos(phi), torch.sin(phi)
+    U = torch.stack([torch.stack([cphi, -sphi], -1),
+                     torch.stack([sphi, cphi], -1)], -2)
+    Sw = AsT @ As
+    theta = 0.5 * torch.atan2(Sw[..., 0, 1] + Sw[..., 1, 0] + 1e-12,
+                              Sw[..., 0, 0] - Sw[..., 1, 1] + 1e-12)
+    cth, sth = torch.cos(theta), torch.sin(theta)
+    Wr = torch.stack([torch.stack([cth, -sth], -1),
+                      torch.stack([sth, cth], -1)], -2)
+    su_sum = Su[..., 0, 0] + Su[..., 1, 1]
+    su_dif = torch.sqrt((Su[..., 0, 0] - Su[..., 1, 1]) ** 2
+                        + 4.0 * Su[..., 0, 1] * Su[..., 1, 0] + 1e-12)
+    sig1 = torch.sqrt((su_sum + su_dif) / 2.0)
+    sig2 = torch.sqrt(torch.clamp_min((su_sum - su_dif) / 2.0, 0.0))
+    zeros = torch.zeros_like(sig1)
+    SIG = torch.stack([torch.stack([sig1, zeros], -1),
+                       torch.stack([zeros, sig2], -1)], -2)
+    S = U.transpose(-1, -2) @ As @ Wr
+    C = torch.stack([torch.stack([torch.sign(S[..., 0, 0]), zeros], -1),
+                     torch.stack([zeros, torch.sign(S[..., 1, 1])], -1)], -2)
+    return U, SIG, Wr @ C
+
+
 def rectify_up_is_up(A: Tensor) -> Tensor:
     """Canonicalize (..., 2, 2) so 'up stays up': zero a12, keep |det|.
     The 1e-10 under the root and the order of the divisions are the JAX
@@ -111,6 +142,23 @@ def laf_to_boundary_pts(laf: np.ndarray, n_pts: int = 50) -> np.ndarray:
     frame = np.concatenate([laf, np.array([[0.0, 0.0, 1.0]])])
     out = (frame @ np.concatenate([x, y, np.ones_like(x)])).T
     return out[:, :2] / out[:, 2:3]
+
+
+def lafs_to_ells(lafs: Tensor) -> Tensor:
+    """(N, 2, 3) LAFs -> (N, 5) Oxford ellipses (x, y, a, b, c), with
+    [a b; b c] the inverse second-moment matrix of the region."""
+    A = lafs[..., :2, :2]
+    scale = torch.sqrt(A[..., 0, 0] * A[..., 1, 1]
+                       - A[..., 0, 1] * A[..., 1, 0] + 1e-10)
+    u, W, _ = svd2x2(A / scale[..., None, None])
+    w1 = 1.0 / (scale * scale * W[..., 0, 0] ** 2)
+    w2 = 1.0 / (scale * scale * W[..., 1, 1] ** 2)
+    zeros = torch.zeros_like(w1)
+    Wi = torch.stack([torch.stack([w1, zeros], -1),
+                      torch.stack([zeros, w2], -1)], -2)
+    E = u @ Wi @ u.transpose(-1, -2)
+    return torch.stack([lafs[..., 0, 2], lafs[..., 1, 2],
+                        E[..., 0, 0], E[..., 0, 1], E[..., 1, 1]], -1)
 
 
 def sc_y_x_to_lafs(sc_y_x: Tensor) -> Tensor:

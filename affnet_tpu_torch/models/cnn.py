@@ -1,24 +1,65 @@
 """Shared pieces of the patch CNNs: per-patch input standardization, L2
-normalization, BatchNorm, dropout from an explicit generator, and the
-orthogonal initialization of a fresh net.
+normalization, BatchNorm, dropout from an explicit generator, the
+orthogonal initialization of a fresh net, and the two eval layer stacks.
 
 Counterparts of ``affnet_tpu/models/cnn.py``'s ``input_norm``, ``l2norm``,
-``batchnorm_eval``/``batchnorm_train``, its ``Dropout`` layer and
-``init_params``.  The convolutions themselves are plain ``nn.Conv2d``: the
-JAX path runs them in XLA too (its Pallas conv is opt-in).
+``batchnorm_eval``/``batchnorm_train``, its ``Dropout`` layer,
+``init_params``, ``apply_spec`` (:func:`apply_layers`) and
+``_apply_spec_flat`` (:func:`apply_flat`).
+
+``EVAL_CONV_LAYOUT`` picks the eval stack, as in the JAX package: "nchw"
+(the default) runs each layer as it stands (``nn.Conv2d``: cuDNN on the
+card); "flat" runs the trunk convolutions through kernel B7 on the flat
+``(C_pad, N*H*W)`` layout (:func:`apply_flat`).  It is read from
+``AFFNET_EVAL_CONV`` at import, which refuses any other value (the JAX
+package's "cnhw" layout has no kernel and is not ported);
+:func:`eval_layout` sets it for a block or a function.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ..ops.conv_flat import activation
+from ..ops.cuda_conv import conv_flat
 
 Tensor = torch.Tensor
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+
+EVAL_CONV_LAYOUTS = ("nchw", "flat")
+
+
+def _checked_layout(layout: str) -> str:
+    if layout not in EVAL_CONV_LAYOUTS:
+        raise ValueError(f"eval conv layout {layout!r}: the port has "
+                         f"{EVAL_CONV_LAYOUTS} (JAX's 'cnhw' is not ported)")
+    return layout
+
+
+EVAL_CONV_LAYOUT = _checked_layout(
+    os.environ.get("AFFNET_EVAL_CONV", "nchw"))
+
+
+@contextlib.contextmanager
+def eval_layout(layout: str):
+    """``EVAL_CONV_LAYOUT = layout`` for a ``with`` block, or for each call
+    of a function it decorates (``eval_layout("flat")(fn)``); the previous
+    layout is restored after."""
+    global EVAL_CONV_LAYOUT
+    old = EVAL_CONV_LAYOUT
+    EVAL_CONV_LAYOUT = _checked_layout(layout)
+    try:
+        yield
+    finally:
+        EVAL_CONV_LAYOUT = old
 
 
 def input_norm(x: Tensor, detach: bool = True) -> Tensor:
@@ -121,3 +162,152 @@ def init_params(net: nn.Module, generator: torch.Generator,
         elif isinstance(layer, nn.BatchNorm2d):
             layer.reset_running_stats()
     return net
+
+
+# ---------------------------------------------------------------------------
+# The eval layer stacks
+# ---------------------------------------------------------------------------
+
+def _channel(v: Tensor, dtype: torch.dtype) -> Tensor:
+    return v.to(dtype)[None, :, None, None]
+
+
+def _conv_in(x: Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> Tensor:
+    """``conv`` with ``dtype`` inputs and weights, float32 accumulation,
+    output rounded to ``dtype``, then the bias in ``dtype``."""
+    y = F.conv2d(x, conv.weight.to(dtype), None, conv.stride, conv.padding)
+    return y if conv.bias is None else y + _channel(conv.bias, dtype)
+
+
+def _batchnorm_eval_in(x: Tensor, bn: nn.BatchNorm2d,
+                       dtype: torch.dtype) -> Tensor:
+    """Eval BatchNorm with the float32 statistics rounded to ``dtype``."""
+    inv = torch.rsqrt(bn.running_var + bn.eps)
+    return (x - _channel(bn.running_mean, dtype)) * _channel(inv, dtype)
+
+
+def apply_layers(layers, x: Tensor, dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None) -> Tensor:
+    """The layers one by one on NCHW ``x``.  With ``dtype`` (bf16, eval
+    only) every conv and eval BatchNorm computes in ``dtype`` as the JAX
+    layers do with a ``compute_dtype``; ``generator`` draws dropout masks
+    in train mode."""
+    if dtype is not None:
+        x = x.to(dtype)
+    for layer in layers:
+        if isinstance(layer, Dropout):
+            x = layer(x, generator)
+        elif dtype is not None and isinstance(layer, nn.Conv2d):
+            x = _conv_in(x, layer, dtype)
+        elif dtype is not None and isinstance(layer, nn.BatchNorm2d):
+            x = _batchnorm_eval_in(x, layer, dtype)
+        else:
+            x = layer(x)
+    return x
+
+
+_ACTS = {nn.ReLU: "relu", nn.Tanh: "tanh", nn.ELU: "elu"}
+
+
+def _fold(layers, i: int):
+    """Conv ``layers[i]`` with a following eval BatchNorm folded into its
+    HWIO weights and bias (float32) and a following activation taken for
+    fusing; returns (w, bias, act, index after them)."""
+    conv = layers[i]
+    w = conv.weight.float().permute(2, 3, 1, 0)
+    bias = (torch.zeros(conv.out_channels, device=w.device)
+            if conv.bias is None else conv.bias.float())
+    j = i + 1
+    if j < len(layers) and isinstance(layers[j], nn.BatchNorm2d):
+        bn = layers[j]
+        scale = torch.rsqrt(bn.running_var + bn.eps)
+        w = w * scale
+        bias = (bias - bn.running_mean) * scale
+        j += 1
+    act = "none"
+    if j < len(layers) and type(layers[j]) in _ACTS:
+        act = _ACTS[type(layers[j])]
+        j += 1
+    return w, bias, act, j
+
+
+def apply_flat(layers, x: Tensor, dtype: Optional[torch.dtype] = None,
+               use_kernel: bool = True) -> Tensor:
+    """Eval-only layer stack on the flat ``(C_pad, N*H*W)`` layout, the JAX
+    package's ``_apply_spec_flat``.  Takes and returns NCHW like
+    :func:`apply_layers`; ``dtype`` (bf16) is the activations' dtype.
+
+    - A conv with the following eval BatchNorm folded into its weights and
+      bias (in float32; in bf16 the folded weights are then rounded) and
+      the following activation fused runs as one launch of B7
+      (``ops/cuda_conv.py``; the plain version for CPU tensors or
+      ``use_kernel=False``).  A VALID conv keeps the first ``h - k + 1``
+      rows and columns of B7's full-extent output; a stride-2 conv keeps
+      the even ones.
+    - A full-cover VALID conv (the 8x8 heads) is one float32 matrix
+      product of depth kh*kw*C (bf16 operands in bf16 mode), as in JAX.
+    - A 2x2 max pool works on the flat layout; dropout is the identity.
+    - The stack stops at the first layer it does not cover: an output
+      width not a multiple of 8, a non-square kernel, a stride other than
+      1 or 2, a kernel as large as the map, or a map with an odd number of
+      pixels (where the TPU kernel's 128-lane blocks must hold 128 patches
+      and exceed its VMEM budget: TFeat's 6x6 layer on 13x13 maps, JAX's
+      ``block_patches`` verdict).  The remaining layers run through
+      :func:`apply_layers`.
+    """
+    layers = list(layers)
+    n, c, h, w = x.shape
+    if c != 1:
+        raise ValueError("apply_flat: patch CNNs take one input channel")
+    dt = dtype if dtype is not None else x.dtype
+    xf = F.pad(x.to(dt).reshape(1, n * h * w), (0, 0, 0, 7))
+    head = None
+    i = 0
+    while i < len(layers):
+        layer = layers[i]
+        if isinstance(layer, nn.Conv2d):
+            kh, kw = layer.kernel_size
+            stride, pad = layer.stride[0], layer.padding[0]
+            o = layer.out_channels
+            wgt, bias, act, j = _fold(layers, i)
+            if kh == kw == h == w and pad == 0 and stride == 1:
+                cin = layer.in_channels
+                xk = xf[:cin].reshape(cin, n, h * w).permute(2, 0, 1)
+                wk = wgt.reshape(kh * kw * cin, o).T.to(dt).float()
+                y = wk @ xk.reshape(h * w * cin, n).float() + bias[:, None]
+                head = activation(y, act).to(dt)          # (O, N)
+                c, h, w = o, 1, 1
+                i = j
+                continue
+            if (o % 8 or kh != kw or layer.stride not in ((1, 1), (2, 2))
+                    or layer.padding != (pad, pad) or kh >= min(h, w)
+                    or (h * w) % 2):
+                break
+            xf = conv_flat(xf, wgt, bias, (h, w), pad, act,
+                           use_kernel=use_kernel)
+            c = o
+            y4 = xf.reshape(c, n, h, w)
+            if pad == 0:
+                h, w = h - kh + 1, w - kw + 1
+                y4 = y4[:, :, :h, :w]
+            if stride == 2:
+                y4 = y4[:, :, ::2, ::2]
+                h, w = y4.shape[2], y4.shape[3]
+            xf = y4.reshape(c, n * h * w)
+            i = j
+        elif (isinstance(layer, nn.MaxPool2d)
+              and (layer.kernel_size, layer.stride, layer.padding)
+              == (2, 2, 0)):
+            y4 = F.max_pool2d(xf.reshape(c, n, h, w), 2, 2)
+            h, w = y4.shape[2], y4.shape[3]
+            xf = y4.reshape(c, n * h * w)
+            i += 1
+        elif isinstance(layer, Dropout):
+            i += 1
+        else:
+            break
+    if head is not None:
+        x_tail = head.T.reshape(n, c, 1, 1)
+    else:
+        x_tail = xf[:c].reshape(c, n, h, w).transpose(0, 1)
+    return apply_layers(layers[i:], x_tail, dtype)

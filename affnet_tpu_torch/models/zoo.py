@@ -21,6 +21,10 @@ BatchNorm's mean and 1/sqrt(var + eps) (computed in float32), are rounded
 to bf16 and applied in bf16, as the JAX layers cast them to the
 activation's dtype (``models/cnn.py`` ``conv2d`` and ``batchnorm_eval``).
 Train mode computes in float32.
+
+In eval, ``cnn.EVAL_CONV_LAYOUT == "flat"`` runs the trunk through kernel
+B7 (:func:`.cnn.apply_flat`), the JAX nets' flat layout, in float32 or in
+the bf16 chain.
 """
 
 from __future__ import annotations
@@ -29,11 +33,12 @@ import copy
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..laf import rectify_up_is_up
-from .cnn import Dropout, batch_norm, input_norm, l2norm
+from ..laf import rectify_up_is_up, rotation_matrix
+from . import cnn
+from .cnn import (Dropout, apply_flat, apply_layers, batch_norm, input_norm,
+                  l2norm)
 
 Tensor = torch.Tensor
 
@@ -41,24 +46,6 @@ Tensor = torch.Tensor
 def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0,
           bias: bool = False) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride=stride, padding=pad, bias=bias)
-
-
-def _channel(v: Tensor, dtype: torch.dtype) -> Tensor:
-    return v.to(dtype)[None, :, None, None]
-
-
-def _conv_in(x: Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> Tensor:
-    """``conv`` with ``dtype`` inputs and weights, float32 accumulation,
-    output rounded to ``dtype``, then the bias in ``dtype``."""
-    y = F.conv2d(x, conv.weight.to(dtype), None, conv.stride, conv.padding)
-    return y if conv.bias is None else y + _channel(conv.bias, dtype)
-
-
-def _batchnorm_eval_in(x: Tensor, bn: nn.BatchNorm2d,
-                       dtype: torch.dtype) -> Tensor:
-    """Eval BatchNorm with the float32 statistics rounded to ``dtype``."""
-    inv = torch.rsqrt(bn.running_var + bn.eps)
-    return (x - _channel(bn.running_mean, dtype)) * _channel(inv, dtype)
 
 
 class PatchNet(nn.Module):
@@ -85,24 +72,29 @@ class PatchNet(nn.Module):
         net.compute_dtype = dtype
         return net
 
-    def forward(self, patches: Tensor,
-                generator: Optional[torch.Generator] = None) -> Tensor:
-        """``generator`` draws the dropout masks in train mode; without one
-        dropout is off."""
+    def feature_vectors(self, patches: Tensor,
+                        generator: Optional[torch.Generator] = None,
+                        use_kernels: bool = True) -> Tensor:
+        """(N, K) float32 features before the head.  In eval mode with
+        ``cnn.EVAL_CONV_LAYOUT == "flat"`` and no autograd recording, the
+        layers run as the flat stack (:func:`.cnn.apply_flat`: kernel B7,
+        or its plain version with ``use_kernels=False``); otherwise one by
+        one.  ``generator`` draws the dropout masks in train mode; without
+        one dropout is off."""
         x = input_norm(patches[:, None, :, :], detach=self.detach_input_norm)
-        dt = None if self.training else self.compute_dtype
-        if dt is not None:
-            x = x.to(dt)
-        for layer in self.features:
-            if isinstance(layer, Dropout):
-                x = layer(x, generator)
-            elif dt is not None and isinstance(layer, nn.Conv2d):
-                x = _conv_in(x, layer, dt)
-            elif dt is not None and isinstance(layer, nn.BatchNorm2d):
-                x = _batchnorm_eval_in(x, layer, dt)
-            else:
-                x = layer(x)
-        return self.head(x.float().flatten(1))
+        if self.training:
+            x = apply_layers(self.features, x, None, generator)
+        elif cnn.EVAL_CONV_LAYOUT == "flat" and not torch.is_grad_enabled():
+            x = apply_flat(self.features, x, self.compute_dtype, use_kernels)
+        else:
+            x = apply_layers(self.features, x, self.compute_dtype)
+        return x.float().flatten(1)
+
+    def forward(self, patches: Tensor,
+                generator: Optional[torch.Generator] = None,
+                use_kernels: bool = True) -> Tensor:
+        return self.head(self.feature_vectors(patches, generator,
+                                              use_kernels))
 
 
 class AffNetFast(PatchNet):
@@ -165,3 +157,55 @@ class HardNet(_Descriptor):
             _conv(128, 128, 3, 1, 1), batch_norm(128), nn.ReLU(),
             Dropout(0.1), _conv(128, 128, 8), batch_norm(128),
         ])
+
+
+def _orinet_layers(ps: int):
+    return [
+        _conv(1, 16, 3, 1, 1), batch_norm(16), nn.ReLU(),
+        _conv(16, 16, 3, 1, 1), batch_norm(16), nn.ReLU(),
+        _conv(16, 32, 3, 2, 1), batch_norm(32), nn.ReLU(),
+        _conv(32, 32, 3, 1, 1), batch_norm(32), nn.ReLU(),
+        _conv(32, 64, 3, 2, 1), batch_norm(64), nn.ReLU(),
+        _conv(64, 64, 3, 1, 1), batch_norm(64), nn.ReLU(),
+        Dropout(0.25), _conv(64, 2, ps // 4, 1, 1, bias=True),
+        nn.Tanh(), nn.AdaptiveAvgPool2d(1),
+    ]
+
+
+class OriNet(PatchNet):
+    """OriNet: AffNet's trunk, a pad-1 (ps/4 x ps/4) conv to 2 outputs,
+    tanh and a global average (x0, x1); the angle is
+    atan2(x0 + 1e-8, x1 + 1e-8) and the net returns its (N, 2, 2) rotation
+    matrix.  Its ``input_norm`` is not detached."""
+
+    detach_input_norm = False
+
+    def __init__(self, ps: int = 32):
+        super().__init__(_orinet_layers(ps))
+        self.ps = ps
+
+    def angle(self, patches: Tensor, use_kernels: bool = True) -> Tensor:
+        return self._angle(self.feature_vectors(patches,
+                                                use_kernels=use_kernels))
+
+    @staticmethod
+    def _angle(xy: Tensor) -> Tensor:
+        return torch.atan2(xy[:, 0] + 1e-8, xy[:, 1] + 1e-8)
+
+    def head(self, xy: Tensor) -> Tensor:
+        return rotation_matrix(self._angle(xy))
+
+
+class OriNetFast(OriNet):
+    """OriNet on 16x16 patches (4x4 head)."""
+
+    def __init__(self):
+        super().__init__(16)
+
+
+class OriNetFast32(OriNet):
+    """OriNet on 32x32 patches (8x8 head): the HesAffNet program's
+    orientation net, with the shipped OriNetFast weights."""
+
+    def __init__(self):
+        super().__init__(32)

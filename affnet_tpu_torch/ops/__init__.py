@@ -1,9 +1,10 @@
 """Plain tensor ops of the extraction, training and shape-optimization
-paths and the wrappers of their CUDA kernels (``cuda_*.py``,
+paths, the flat-layout convolution of the eval nets, and the wrappers of
+their CUDA kernels (``cuda_*.py``,
 ``batched_sampler.py``, ``pyramid_sampler.py``).  Each wrapper keeps a plain
 integer count: one per kernel launch, nowhere else."""
 
-from . import cuda_blur, cuda_detect, cuda_patches, cuda_topk
+from . import cuda_blur, cuda_conv, cuda_detect, cuda_patches, cuda_topk
 
 # Kernel name -> (module, counter attribute).
 COUNTERS = {
@@ -16,6 +17,8 @@ COUNTERS = {
     "batched_bwd": (cuda_patches, "launches_bwd"),
     "pyramid_fwd": (cuda_patches, "launches_pyramid"),
     "pyramid_bwd": (cuda_patches, "launches_pyramid_bwd"),
+    "conv": (cuda_conv, "launches"),
+    "conv_bf16": (cuda_conv, "launches_bf16"),
 }
 
 # The kernels the extraction path must launch, in float32 and in fast mode.

@@ -55,14 +55,39 @@ Phases, each timed and each fatal on failure:
                and its bound), keypoints identical to the plain fast path on
                the card, the keypoint set against the float32 run (gate flips
                counted), float16 unit-norm descriptors, ms per image.
+ 10. conv kernels — kernel B7 (the flat eval layout's convolution) and
+               B7-bf16 against the plain version at every call the flat
+               stack makes on the flagship's inputs (AffNetFast's six trunk
+               layers on the 3000 shape-site patches, HardTFeatNet's 7x7
+               layer on the 2000 desc-site patches), plus the "none" and
+               "elu" activations on random inputs; timed beside the plain
+               version, F.conv2d (cuDNN) computing conv_flat's function and
+               the layer's own, and the bounds of both.
+ 11. hesaffnet — the HesAffNet program at its command-line defaults (th=-1
+               threshold mode, --do-ori: AffNetFast and OriNetFast32 over
+               every NMS survivor) with the flat layout on the images of
+               phase 3: each of the 12 B7 calls of a pass held against the
+               plain version at the program's shapes (about 34k patches)
+               and timed as in phase 10; 12 B7 launches per pass over an
+               image, finite ellipses written and read back, keypoints
+               against the same program through the plain versions on the
+               card (LAFs within the detector tests' tolerance) and against
+               the nchw layout (flips counted), ms per image beside nchw's,
+               peak device memory.
+ 12. flat extraction — the flagship top-k extraction with the flat layout
+               in float32 and fast mode: 7 B7 (B7-bf16) launches per image,
+               keypoints against the nchw runs counted, ms per image beside
+               nchw's.
 
 Kernel times ("ms") are device times from torch.profiler (CUPTI): the
 card's busy time per call, without the host's launch overhead.  The log
 also prints each kernel's median per-call time between CUDA events, which
 includes that overhead.
 
-The package's entry points (the extractor, the training step, the shape
-optimizer) run with TF32 off for cuDNN convolutions and matmuls
+Phases 1-9 run the nets' nchw layout; phases 10-12 set the flat layout
+per call (models/cnn.py eval_layout), so AFFNET_EVAL_CONV need not be
+set.  The package's entry points (the extractor, the training step, the
+shape optimizer) run with TF32 off for cuDNN convolutions and matmuls
 (affnet_tpu_torch.utils.float32_math), so the nets compute in float32 like
 the JAX reference.  Imports torch, numpy and the standard library only.
 The last line of stdout is {"ok": true, "device": {...}}; the line before
@@ -74,6 +99,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -90,18 +116,21 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from affnet_tpu_torch import load_pretrained
-from affnet_tpu_torch.cli import optimize_shapes
+from affnet_tpu_torch.cli import hesaffnet, optimize_shapes
 from affnet_tpu_torch.data import (DevicePairDataset, PairDataset,
                                    synthetic_pairs_from_image)
 from affnet_tpu_torch.detector import (DetectorConfig,
                                        ScaleSpaceAffinePatchExtractor)
 from affnet_tpu_torch.kernels import build
 from affnet_tpu_torch.models import AffNetFast, HardTFeatNet, params_from_jax
+from affnet_tpu_torch.io_formats import read_ells, write_ells
+from affnet_tpu_torch.models import cnn
 from affnet_tpu_torch.models.cnn import init_params
 from affnet_tpu_torch.ops import (EXTRACTION_KERNELS, FAST_EXTRACTION_KERNELS,
-                                  cuda_blur, cuda_detect, cuda_patches,
-                                  cuda_topk, launch_counts,
+                                  cuda_blur, cuda_conv, cuda_detect,
+                                  cuda_patches, cuda_topk, launch_counts,
                                   reset_launch_counts)
+from affnet_tpu_torch.ops.conv_flat import conv_flat_plain
 from affnet_tpu_torch.ops.nms import M_CAND, ROW_S
 from affnet_tpu_torch.ops.patches import (base_lin, batched_tables,
                                           extract_patches_batched,
@@ -112,6 +141,7 @@ from affnet_tpu_torch.train import (TrainConfig, draw_affnet_lafs,
                                     init_state, make_affnet_train_step,
                                     make_descriptor, tilt_for_epoch,
                                     train_loop)
+from affnet_tpu_torch.utils import float32_math
 
 H, W = 1080, 1920
 NFEATS = 2000
@@ -479,16 +509,16 @@ def phase_main(det, det_plain, imgs, kernels=EXTRACTION_KERNELS,
     return {"counts": counts, "first_pass_s": wall, "outs": outs}
 
 
-def time_per_image(dets, imgs, passes: int = 2) -> list:
-    """Host-clock ms of each call, synchronized at both ends, for each
-    extractor in turn on every image, ``passes`` times."""
-    times = [[] for _ in dets]
+def time_per_image(runs, imgs, passes: int = 2) -> list:
+    """Host-clock ms of each call, synchronized at both ends, for each run
+    (a function of the image) in turn on every image, ``passes`` times."""
+    times = [[] for _ in runs]
     for _ in range(passes):
         for img in imgs:
-            for d, acc in zip(dets, times):
+            for run, acc in zip(runs, times):
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
-                d(img, describe=True)
+                run(img)
                 torch.cuda.synchronize()
                 acc.append((time.perf_counter() - t1) * 1e3)
     return times
@@ -1161,13 +1191,379 @@ def run_fast(aff, desc, imgs, f32_outs, f32_ms, device) -> tuple:
             f"{only_fast} only in fast mode, {only_f32} only in float32 "
             "(eig-ratio/boundary gate flips on bf16 shapes and their "
             "re-top-k refills)")
-    per_img, per_img_plain = time_per_image((det, det_plain), imgs)
+    per_img, per_img_plain = time_per_image(
+        [functools.partial(d, describe=True) for d in (det, det_plain)], imgs)
     ms = float(np.median(per_img))
     log(f"fast_ms_per_image: median {ms:.3f} (all "
         f"{[round(x, 3) for x in per_img]}); plain fast path median "
         f"{np.median(per_img_plain):.3f}; float32 median {f32_ms:.3f}")
     log(f"phase fast wall_s: {time.perf_counter() - t:.3f}")
-    return res, main_res["counts"], ms
+    return res, main_res["counts"], ms, main_res["outs"]
+
+
+# ---------------------------------------------------------------------------
+# Phases 10-12: the flat eval layout (kernel B7) and the HesAffNet program
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 tensor peak (data sheet)
+# The HesAffNet program's command-line defaults (affnet_tpu/cli/hesaffnet.py).
+PROGRAM_TH = -1.0
+PROGRAM_CAP = 16384
+B7_PER_PROGRAM_PASS = 12          # AffNetFast 6 + OriNetFast32 6
+B7_PER_EXTRACTION = 7             # AffNetFast 6 + HardTFeatNet 1
+
+
+def conv_strides(net) -> list:
+    """The stride of each conv layer of ``net``, in order: B7's calls run
+    the first of them (a stride-2 layer at stride 1, subsampled after)."""
+    return [layer.stride[0] for layer in net.features
+            if isinstance(layer, torch.nn.Conv2d)]
+
+
+_TORCH_ACTS = {"none": lambda y: y, "relu": torch.relu, "tanh": torch.tanh,
+               "elu": F.elu}
+
+
+def check_conv(name, x, w, bias, hw, pad, act, stride=1,
+               reps: int = 20) -> dict:
+    """B7 (B7-bf16 for bf16 x) against its plain version on the card:
+    float32 within 1e-5 of the output's largest magnitude (another
+    summation order; the card's tanhf/expm1f within a few ulps), bf16
+    within that plus one bf16 ulp of the value (a float32 sum that differs
+    in its last bits may round to the neighbouring bf16 value).  Timed
+    beside the plain version and two cuDNN calls (TF32 off) on the NCHW
+    tensor: ``library_ms`` computes conv_flat's own function (F.conv2d at
+    stride 1 with the same padding over the C_pad channels, full extent,
+    plus bias and activation), ``layer_library_ms`` only what the layer
+    keeps (its C channels at its ``stride``; a VALID conv's output only),
+    whose difference to the kept part of B7's output is logged
+    (``layer_err``; cuDNN picks its own algorithm and, in bf16, rounds
+    before the bias).  ``bound_ms`` is over conv_flat's work,
+    ``layer_bound_ms`` over the layer's."""
+    bf16 = x.dtype == torch.bfloat16
+    x, w = x.contiguous(), w.contiguous()   # as conv_flat passes them
+
+    def kernel():
+        return cuda_conv.conv_flat_cuda(x, w, bias, hw, pad, act)
+
+    def plain():
+        return conv_flat_plain(x, w, bias, hw, pad, act)
+
+    with float32_math():
+        got, ref = kernel().float(), plain().float()
+        scale = float(ref.abs().max())
+        tol = 1e-5 * scale + (ref.abs() * 2.0 ** -7 if bf16 else 0.0)
+        err = float((got - ref).abs().max())
+        require(bool(torch.all((got - ref).abs() <= tol)),
+                f"conv {name}: max err {err} (largest |value| {scale})")
+        del ref, tol
+        c_pad, total = x.shape
+        kh, kw, c, o = w.shape
+        h, wd = hw
+        n = total // (h * wd)
+        oh = (h + 2 * pad - kh) // stride + 1
+        ow = (wd + 2 * pad - kw) // stride + 1
+        # What the layer keeps of B7's output, as the flat stack crops and
+        # subsamples it.
+        kept = got.reshape(o, n, h, wd)[:, :, :(oh - 1) * stride + 1:stride,
+                                        :(ow - 1) * stride + 1:stride]
+        x4 = x.reshape(c_pad, n, h, wd).transpose(0, 1).contiguous()
+        w4 = F.pad(w.permute(3, 2, 0, 1), (0, 0, 0, 0, 0, c_pad - c)).to(
+            x.dtype).contiguous()
+        x4c, w4c = x4[:, :c].contiguous(), w4[:, :c].contiguous()
+        b = bias.to(x.dtype)
+        act_fn = _TORCH_ACTS[act]
+
+        def library():
+            return act_fn(F.conv2d(x4, w4, b, padding=pad))
+
+        def layer_library():
+            return act_fn(F.conv2d(x4c, w4c, b, stride=stride, padding=pad))
+
+        es = x.element_size()
+        peak = PEAK_BF16_FLOP_PER_S if bf16 else PEAK_F32_FLOP_PER_S
+
+        def bound(ch, out_pixels):
+            n_bytes = (ch * total + o * out_pixels) * es + (
+                ch * kh * kw * o + o) * 4
+            t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = 2.0 * kh * kw * ch * o * out_pixels / peak * 1e3
+            return (max(t_bytes, t_ops),
+                    "bytes" if t_bytes >= t_ops else "operations")
+
+        layer_err = float((layer_library().float()
+                           - kept.transpose(0, 1)).abs().max())
+        del got, kept
+        b_ms, b_by = bound(c_pad, total)
+        lb_ms, lb_by = bound(c, n * oh * ow)
+        res = dict(name=f"conv_{'bf16_' if bf16 else ''}{name}", err=err,
+                   layer_err=layer_err,
+                   shape=(c_pad, c, o, kh, stride, n, h, wd, pad, act),
+                   ms=time_ms(kernel, reps),
+                   event_ms=event_median_ms(kernel, reps),
+                   plain_ms=time_ms(plain, max(2, reps // 4)),
+                   library_ms=time_ms(library, reps),
+                   layer_library_ms=time_ms(layer_library, reps),
+                   bound_ms=b_ms, bound_by=b_by,
+                   layer_bound_ms=lb_ms, layer_bound_by=lb_by)
+    return res
+
+
+def log_conv(r: dict) -> None:
+    log(f"kernel {r['name']} (C_pad, C, O, k, stride, N, H, W, pad, act) "
+        f"{r['shape']}: max_abs_err {r['err']:.3g} ms {r['ms']:.4f} "
+        f"event_median_ms {r['event_ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+        f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+        f"({r['bound_by']}); the layer's own work: max |diff| to cuDNN "
+        f"{r['layer_err']:.3g} library_ms "
+        f"{r['layer_library_ms']:.4f} bound_ms {r['layer_bound_ms']:.4f} "
+        f"({r['layer_bound_by']})")
+
+
+def check_conv_calls(run, names, strides, reps: int = 20) -> dict:
+    """``run()`` under the flat layout, with each B7 call it makes held
+    against the plain version and timed (check_conv) on the inputs the
+    path gives it, before the path goes on with the kernel's output.  The
+    i-th call is ``names[i]``, a layer of stride ``strides[i]``."""
+    res = {}
+    orig = cnn.conv_flat
+
+    def spy(x, w, bias, img_hw, pad, act, use_kernel=True):
+        i = len(res)
+        require(i < len(names), f"more B7 calls than the layers {names}")
+        res[names[i]] = check_conv(names[i], x, w, bias, img_hw, pad, act,
+                                   strides[i], reps)
+        return orig(x, w, bias, img_hw, pad, act, use_kernel=use_kernel)
+
+    cnn.conv_flat = spy
+    try:
+        with cnn.eval_layout("flat"):
+            run()
+    finally:
+        cnn.conv_flat = orig
+    require(list(res) == list(names), f"B7 calls {list(res)}, expected "
+            f"{list(names)}")
+    return res
+
+
+def _net_pass(net, patches) -> None:
+    with torch.inference_mode(), float32_math():
+        net(patches)
+
+
+def conv_site_inputs(det, img):
+    """The shape site's patches (3000, PS 32) and the desc site's (2000)
+    of one image, through the extractor's stages."""
+    with torch.inference_mode():
+        p = det._plan(H, W)
+        cand = det._multiscale_detect(img, p)
+        cand["lafs"] = torch.cat([det.cfg.mr_size * cand["lafs"][:, :, 0:2],
+                                  cand["lafs"][:, :, 2:]], dim=2)
+        shape_patches, _ = cuda_patches.extract_patches_pyramid(
+            cand["flat"], cand["lafs"], cand["ext_level"], *p.tables, ps=32,
+            bf16=det.cfg.fast)
+        cand = det._sort_for_describe(det._affine_shape(cand, p), p, H, W)
+        desc_patches, _ = cuda_patches.extract_patches_pyramid(
+            cand["flat"], cand["lafs"], cand["desc_level"], *p.tables,
+            ps=det.cfg.patch_size, bf16=det.cfg.fast)
+    return shape_patches, desc_patches
+
+
+def phase_conv(det, fast_det, img, seed) -> dict:
+    """Phase 10: B7 and B7-bf16 at every layer shape of the flat stack on
+    the flagship's inputs (AffNetFast's six trunk layers on the 3000
+    shape-site patches and HardTFeatNet's 7x7 layer on the 2000 desc-site
+    patches), each call held against the plain version where the net's
+    flat pass makes it, plus the two activations the zoo's path does not
+    use, on random inputs."""
+    t = time.perf_counter()
+    res = {}
+    aff = [f"aff{i}" for i in range(1, 7)]
+    for d, tag in ((det, ""), (fast_det, "bf16_")):
+        shape_patches, desc_patches = conv_site_inputs(d, img)
+        for net, patches, names in ((d.shape_net, shape_patches, aff),
+                                    (d.desc_net, desc_patches, ["tfeat1"])):
+            checked = check_conv_calls(
+                functools.partial(_net_pass, net, patches), names,
+                conv_strides(net))
+            res.update({f"conv_{tag}{k}": r for k, r in checked.items()})
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    for act in ("none", "elu"):
+        x = torch.randn((16, 64 * 1024), generator=gen).to(img.device)
+        w = (torch.randn((3, 3, 16, 16), generator=gen) / 12.0).to(img.device)
+        b = (0.1 * torch.randn((16,), generator=gen)).to(img.device)
+        for dt in (torch.float32, torch.bfloat16):
+            r = check_conv(f"small_{act}", x.to(dt), w, b, (32, 32), 1, act)
+            log(f"kernel {r['name']} {r['shape']}: max_abs_err "
+                f"{r['err']:.3g}")
+    torch.cuda.synchronize()
+    for r in res.values():
+        log_conv(r)
+    log(f"phase conv kernels wall_s: {time.perf_counter() - t:.3f}")
+    return res
+
+
+def keypoint_flips(a: dict, b: dict) -> tuple:
+    """Keypoints only in a, only in b (by orig_idx)."""
+    return (np.setdiff1d(a["orig_idx"], b["orig_idx"]).size,
+            np.setdiff1d(b["orig_idx"], a["orig_idx"]).size)
+
+
+def phase_hesaffnet(imgs, device, smi) -> dict:
+    """Phase 11: the HesAffNet program at its command-line defaults (th=-1
+    threshold mode, max-keypoints 16384, --do-ori) with the flat layout,
+    through the program's own functions (the card's machine has no PIL):
+    every NMS survivor through AffNetFast and OriNetFast32.  One pass over
+    the first image holds each of its 12 B7 calls against the plain
+    version at the program's shapes and times it; then the counted run: 12
+    B7 launches per pass over an image, ellipses written and read back;
+    keypoints against the same program through the plain versions on the
+    card (flips counted, the common LAFs within the detector tests'
+    tolerance) and against the nchw layout; ms per image beside nchw's."""
+    t = time.perf_counter()
+    det = hesaffnet.make_extractor(th=PROGRAM_TH, max_keypoints=PROGRAM_CAP,
+                                   do_ori=True, device=device)
+    det_plain = hesaffnet.make_extractor(
+        th=PROGRAM_TH, max_keypoints=PROGRAM_CAP, do_ori=True, device=device,
+        use_kernels=False)
+    flat = cnn.eval_layout("flat")(hesaffnet.image_to_ells)
+    nchw = cnn.eval_layout("nchw")(hesaffnet.image_to_ells)
+    convs = check_conv_calls(
+        functools.partial(hesaffnet.image_to_ells, det, imgs[0],
+                          do_ori=True),
+        [f"hes_aff{i}" for i in range(1, 7)]
+        + [f"hes_ori{i}" for i in range(1, 7)],
+        conv_strides(det.shape_net)[:6] + conv_strides(det.ori_net)[:6],
+        reps=5)
+    torch.cuda.synchronize()
+    for r in convs.values():
+        log_conv(r)
+    log(f"hesaffnet B7 checks wall_s: {time.perf_counter() - t:.3f}")
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    outs, per_pass = [], []
+    for img in imgs:
+        before = cuda_conv.launches
+        outs.append(flat(det, img, do_ori=True))
+        per_pass.append(cuda_conv.launches - before)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = launch_counts()
+    log(f"hesaffnet path launches ({len(imgs)} images): "
+        f"{json.dumps(counts)}")
+    require(all(n == B7_PER_PROGRAM_PASS for n in per_pass),
+            f"B7 launches per pass {per_pass}, expected "
+            f"{B7_PER_PROGRAM_PASS}")
+    # Threshold mode keeps every survivor without a top-k: no B3.
+    for name in ("blur", "detect", "patches", "conv"):
+        require(counts[name] > 0, f"kernel {name} not launched on the "
+                "hesaffnet path")
+    require(counts["conv_bf16"] == 0 and counts["patches_bf16"] == 0,
+            "bf16 kernels launched in float32")
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (img, (ells, out)) in enumerate(zip(imgs, outs)):
+            n = len(ells)
+            require(n > 0 and ells.shape == (n, 5)
+                    and np.isfinite(ells).all(),
+                    f"image {i}: ellipses {ells.shape} not finite")
+            require(len(out["resp"]) == n and np.all(
+                np.diff(out["orig_idx"]) > 0),
+                f"image {i}: not in scan order")
+            path = os.path.join(tmp, f"img{i}.ells")
+            write_ells(path, ells)
+            back = read_ells(path)
+            require(back.shape == ells.shape and np.allclose(
+                back, ells, rtol=0, atol=1e-9),
+                f"image {i}: ellipses read back differ")
+            _, ref = flat(det_plain, img, do_ori=True)
+            _, alt = nchw(det, img, do_ori=True)
+            require(ref["n_detected"] == out["n_detected"]
+                    == alt["n_detected"], f"image {i}: survivor counts "
+                    f"{out['n_detected']} {ref['n_detected']} "
+                    f"{alt['n_detected']}")
+            fp = keypoint_flips(out, ref)
+            fn = keypoint_flips(out, alt)
+            limit = max(2, 2 * n // 1000)
+            require(max(fp) <= limit, f"image {i}: {fp} keypoints differ "
+                    "from the plain path")
+            require(max(fn) <= 5 * limit, f"image {i}: {fn} keypoints "
+                    "differ from the nchw layout")
+            common, ri, gi = np.intersect1d(ref["orig_idx"], out["orig_idx"],
+                                            return_indices=True)
+            lerr = np.abs(out["lafs"][gi] - ref["lafs"][ri]).reshape(
+                len(common), -1).max(axis=1)
+            # The port's detector tests' LAF tolerance: atol 1e-2 px, at
+            # most 2 keypoints over it.
+            require((lerr > 1e-2).sum() <= 2, f"image {i}: "
+                    f"{(lerr > 1e-2).sum()} LAFs differ from the plain "
+                    f"path by more than 1e-2 px (max {lerr.max():.3g})")
+            n_det = int(out["n_detected"])
+            cap = (f"raised: the JAX program retries at "
+                   f"{1 << (n_det - 1).bit_length()}"
+                   if n_det > PROGRAM_CAP else "holds")
+            log(f"image {i}: {n_det} NMS survivors (cap {PROGRAM_CAP} {cap}), "
+                f"{n} regions after the gate; B7 launches this pass "
+                f"{per_pass[i]}; against the plain path {fp[0]} only here, "
+                f"{fp[1]} only there (gate flips), LAF max |diff| "
+                f"{lerr.max():.3g} px, {(lerr > 1e-2).sum()} over 1e-2; "
+                f"against nchw {fn[0]} / {fn[1]}")
+    per_img, per_img_nchw = time_per_image(
+        [functools.partial(flat, det, do_ori=True),
+         functools.partial(nchw, det, do_ori=True)], imgs)
+    ms, ms_nchw = float(np.median(per_img)), float(np.median(per_img_nchw))
+    log(f"hesaffnet_ms_per_image (flat): median {ms:.3f} (all "
+        f"{[round(x, 3) for x in per_img]}); nchw median {ms_nchw:.3f} (all "
+        f"{[round(x, 3) for x in per_img_nchw]})")
+    log(f"hesaffnet peak device memory (flat, first pass): {peak_gb:.3f} GB "
+        f"on {smi}")
+    log(f"phase hesaffnet wall_s: {time.perf_counter() - t:.3f}")
+    return dict(counts=counts, convs=convs, ms=ms, ms_nchw=ms_nchw)
+
+
+def phase_flat_extraction(aff, desc, imgs, nchw_outs, device) -> dict:
+    """Phase 12: the flagship top-k extraction (describe=True) with the
+    flat layout, in float32 and in fast mode: 7 B7 (B7-bf16) launches per
+    image, the outputs' checks, keypoints against the nchw runs of phases
+    3 and 9 counted, ms per image beside nchw's in the same phase."""
+    t = time.perf_counter()
+    res = {}
+    for cfg, counter, dtype in ((CONFIG, "conv", np.float32),
+                                (FAST_CONFIG, "conv_bf16", np.float16)):
+        mode = "fast" if cfg.fast else "float32"
+        det = ScaleSpaceAffinePatchExtractor(cfg, shape_net=aff,
+                                             desc_net=desc, device=device)
+        run = cnn.eval_layout("flat")(functools.partial(det, describe=True))
+        reset_launch_counts()
+        outs, per_img = [], []
+        for img in imgs:
+            before = launch_counts()[counter]
+            outs.append(run(img))
+            per_img.append(launch_counts()[counter] - before)
+        counts = launch_counts()
+        log(f"flat extraction launches ({mode}, {len(imgs)} images): "
+            f"{json.dumps(counts)}")
+        require(all(n == B7_PER_EXTRACTION for n in per_img),
+                f"{mode}: B7 launches per image {per_img}")
+        other = "conv" if cfg.fast else "conv_bf16"
+        require(counts[other] == 0, f"{mode}: {other} launched")
+        for i, (out, ref) in enumerate(zip(outs, nchw_outs[mode])):
+            check_outputs(out, i, dtype)
+            fl = keypoint_flips(out, ref)
+            require(max(fl) <= 10, f"{mode} image {i}: {fl} keypoints "
+                    "differ from nchw")
+            log(f"image {i} ({mode}): flat against nchw keypoint sets "
+                f"{fl[0]} / {fl[1]} only in one of them")
+        per_flat, per_nchw = time_per_image(
+            [run, cnn.eval_layout("nchw")(
+                functools.partial(det, describe=True))], imgs)
+        res[mode] = dict(counts=counts, ms=float(np.median(per_flat)),
+                         ms_nchw=float(np.median(per_nchw)))
+        log(f"flat_{mode}_ms_per_image: median {res[mode]['ms']:.3f} (all "
+            f"{[round(x, 3) for x in per_flat]}); nchw median "
+            f"{res[mode]['ms_nchw']:.3f} (all "
+            f"{[round(x, 3) for x in per_nchw]})")
+    log(f"phase flat extraction wall_s: {time.perf_counter() - t:.3f}")
+    return res
 
 
 def main(argv=None) -> int:
@@ -1179,6 +1575,13 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    # Phases 1-9 run the nchw layout whatever AFFNET_EVAL_CONV says;
+    # phases 10-12 set theirs per call.
+    with cnn.eval_layout("nchw"):
+        return run_phases(args)
+
+
+def run_phases(args) -> int:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} x{torch.cuda.device_count()}, torch "
@@ -1216,7 +1619,8 @@ def main(argv=None) -> int:
     log(f"phase main wall_s: {time.perf_counter() - t:.3f}")
 
     t = time.perf_counter()
-    per_img, per_img_plain = time_per_image((det, det_plain), imgs)
+    per_img, per_img_plain = time_per_image(
+        [functools.partial(d, describe=True) for d in (det, det_plain)], imgs)
     f32_ms = float(np.median(per_img))
     log(f"end_to_end_ms_per_image: median {f32_ms:.3f} "
         f"(all {[round(x, 3) for x in per_img]}); plain path median "
@@ -1225,14 +1629,23 @@ def main(argv=None) -> int:
 
     train_res, tr = run_training(args.seed, device)
     shape_res, so = run_shape_opt(device, args.seed)
-    fast_res, fast_counts, _ = run_fast(aff, desc, imgs, main_res["outs"],
-                                        f32_ms, device)
+    fast_res, fast_counts, _, fast_outs = run_fast(
+        aff, desc, imgs, main_res["outs"], f32_ms, device)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    log(smi.splitlines()[0])
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+    fast_det = ScaleSpaceAffinePatchExtractor(FAST_CONFIG, shape_net=aff,
+                                              desc_net=desc, device=device)
+    conv_res = phase_conv(det, fast_det, torch.from_numpy(imgs[0]).to(device),
+                          args.seed)
+    hes = phase_hesaffnet(imgs, device, smi)
+    flat_res = phase_flat_extraction(
+        aff, desc, imgs, {"float32": main_res["outs"], "fast": fast_outs},
+        device)
+    log(smi)
 
     # (result, counter, source, TPU kernel).  B4 at its two extraction
     # sites as before (launches: both sites together); B5 forward at the
@@ -1270,6 +1683,21 @@ def main(argv=None) -> int:
                      "affnet_tpu_torch/csrc/patches.cu",
                      "affnet_tpu/ops/pallas_patches.py:94 (mxu_dtype=bf16, "
                      ":214-247)"))
+    # B7 and B7-bf16 at the flagship's layer shapes (phase 10), with the
+    # launches of the flagship under flat (phase 12) in float32 and in fast
+    # mode; B7 at the HesAffNet program's shapes, with that path's
+    # launches (phase 11).
+    for key, r in conv_res.items():
+        bf16 = key.startswith("conv_bf16")
+        rows.append((r, flat_res["fast"]["counts"]["conv_bf16"] if bf16
+                     else flat_res["float32"]["counts"]["conv"],
+                     "affnet_tpu_torch/csrc/conv.cu",
+                     "affnet_tpu/ops/pallas_conv.py:77"
+                     + (" (compute_dtype=bf16)" if bf16 else "")))
+    for r in hes["convs"].values():
+        rows.append((r, hes["counts"]["conv"],
+                     "affnet_tpu_torch/csrc/conv.cu",
+                     "affnet_tpu/ops/pallas_conv.py:77"))
     kernels = [{
         "name": r["name"], "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,

@@ -13,11 +13,15 @@ import torch
 import os
 
 from affnet_tpu_torch import load_pretrained
+from affnet_tpu_torch.cli import hesaffnet
 from affnet_tpu_torch.detector import (DetectorConfig,
                                        ScaleSpaceAffinePatchExtractor)
-from affnet_tpu_torch.models import AffNetFast, HardTFeatNet, params_from_jax
-from affnet_tpu_torch.ops import (batched_sampler, cuda_blur, cuda_detect,
-                                  cuda_patches, cuda_topk)
+from affnet_tpu_torch.models import (AffNetFast, HardTFeatNet, OriNetFast32,
+                                     cnn, params_from_jax)
+from affnet_tpu_torch.ops import (batched_sampler, cuda_blur, cuda_conv,
+                                  cuda_detect, cuda_patches, cuda_topk)
+from affnet_tpu_torch.ops.conv_flat import conv_flat_plain
+from affnet_tpu_torch.utils import float32_math
 from affnet_tpu_torch.ops.patches import (extract_patches_batched,
                                           extract_patches_from_flat_pyramid)
 from affnet_tpu_torch.ops.pyramid_sampler import make_pyramid_sampler_diff
@@ -314,3 +318,100 @@ def test_fast_extractor_matches_plain_fast(dev):
     assert got["descs"].dtype == np.float16
     norms = np.linalg.norm(got["descs"].astype(np.float32), axis=1)
     assert np.abs(norms - 1.0).max() < 1e-3
+
+
+# (C_pad, C, O, k, pad, H, N): the flat stack's layer shapes at a few
+# patches (odd counts leave a partial last tile), and one layer whose
+# output width is not a multiple of 16 (the kernel's 8-output groups).
+CONV_CASES = [
+    (8, 1, 16, 3, 1, 32, 5), (16, 16, 32, 3, 1, 32, 3),
+    (32, 32, 64, 3, 1, 16, 7), (64, 64, 64, 3, 1, 8, 37),
+    (8, 1, 32, 7, 0, 32, 4), (128, 128, 128, 3, 1, 8, 19),
+    (16, 16, 24, 3, 1, 13, 9),
+]
+
+
+@pytest.mark.parametrize("case", CONV_CASES)
+@pytest.mark.parametrize("act", ["none", "relu", "tanh", "elu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernel(dev, case, act, dtype):
+    """B7 (B7-bf16) against its plain version: float32 within 1e-5 of the
+    output's largest magnitude (another summation order, the card's
+    tanhf/expm1f), bf16 within that plus one bf16 ulp of the value; one
+    launch on the matching counter."""
+    c_pad, c, o, k, pad, h, n = case
+    g = torch.Generator().manual_seed(sum(case))
+    x = torch.zeros((c_pad, n * h * h))
+    x[:c] = torch.randn((c, n * h * h), generator=g)
+    w = torch.randn((k, k, c, o), generator=g) / (k * k * c) ** 0.5
+    b = 0.1 * torch.randn((o,), generator=g)
+    x, w, b = x.to(dev, dtype), w.to(dev), b.to(dev)
+    before = (cuda_conv.launches, cuda_conv.launches_bf16)
+    got = cuda_conv.conv_flat(x, w, b, (h, h), pad, act)
+    bf16 = dtype == torch.bfloat16
+    assert (cuda_conv.launches, cuda_conv.launches_bf16) == (
+        before[0] + (not bf16), before[1] + bf16)
+    assert got.dtype == dtype and got.shape == (o, n * h * h)
+    with float32_math():
+        ref = conv_flat_plain(x, w, b, (h, h), pad, act).float()
+    tol = 1e-5 * float(ref.abs().max()) + (ref.abs() * 2.0 ** -7 if bf16
+                                           else 0.0)
+    assert bool(torch.all((got.float() - ref).abs() <= tol))
+
+
+def test_conv_kernel_checks(dev):
+    x = torch.zeros((8, 2 * 64 * 64), device=dev)
+    with pytest.raises(ValueError, match="kh <= 32"):
+        cuda_conv.conv_flat(x, torch.zeros((33, 33, 1, 8), device=dev),
+                            None, (64, 64), 1)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_conv.conv_flat(x.half(), torch.zeros((3, 3, 1, 8), device=dev),
+                            None, (64, 64), 1)
+
+
+def _pretrained(cls, name):
+    net = cls()
+    net.load_state_dict(params_from_jax(load_pretrained(name)))
+    return net
+
+
+@pytest.mark.parametrize("cls,name,launch_count", [
+    (AffNetFast, "AffNetFast", 6), (OriNetFast32, "OriNetFast", 6),
+    (HardTFeatNet, "HardTFeatNet", 1)])
+def test_flat_nets_kernel_vs_plain(dev, cls, name, launch_count):
+    """The pretrained nets under the flat layout through B7 against the
+    same stack through its plain version: within 1e-5 (float32 sums in
+    another order)."""
+    net = _pretrained(cls, name).to(dev)
+    p = torch.rand((300, 32, 32), device=dev)
+    with cnn.eval_layout("flat"), torch.inference_mode(), float32_math():
+        before = cuda_conv.launches
+        got = net(p)
+        assert cuda_conv.launches == before + launch_count
+        ref = net(p, use_kernels=False)
+        assert cuda_conv.launches == before + launch_count
+        flat_feats = net.feature_vectors(p)
+    with cnn.eval_layout("nchw"), torch.inference_mode(), float32_math():
+        nchw = net.feature_vectors(p)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(flat_feats, nchw, rtol=1e-4, atol=1e-4)
+
+
+def test_hesaffnet_program_flat_on_card(dev):
+    """The HesAffNet program (th=-1, do_ori) on the 640x800 fixture with the
+    flat layout: 12 B7 launches, keypoints against the plain path within 2
+    per 1000 gate flips."""
+    img = np.load(os.path.join(FIX, "detector_golden_fullres.npz"))["img"]
+    with cnn.eval_layout("flat"):
+        det = hesaffnet.make_extractor(do_ori=True, device=dev)
+        before = cuda_conv.launches
+        ells, out = hesaffnet.image_to_ells(det, img, do_ori=True)
+        assert cuda_conv.launches == before + 12
+        _, ref = hesaffnet.image_to_ells(
+            hesaffnet.make_extractor(do_ori=True, device=dev,
+                                     use_kernels=False), img, do_ori=True)
+    assert np.isfinite(ells).all() and ells.shape == (len(out["resp"]), 5)
+    assert out["n_detected"] == ref["n_detected"] > 4096
+    n = len(ref["orig_idx"])
+    assert np.setdiff1d(out["orig_idx"], ref["orig_idx"]).size <= 2 * n // 1000
+    assert np.setdiff1d(ref["orig_idx"], out["orig_idx"]).size <= 2 * n // 1000

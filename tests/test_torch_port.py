@@ -27,6 +27,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "import affnet_tpu_torch.models.sift, affnet_tpu_torch.cli\n"
         "import affnet_tpu_torch.cli.optimize_shapes\n"
         "import affnet_tpu_torch.cli.hesaffnet\n"
+        "import affnet_tpu_torch.io_formats, affnet_tpu_torch.ops.cuda_conv\n"
         "import affnet_tpu_torch.kernels.build\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -43,7 +44,8 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_sources_have_no_pytorch_headers():
     srcs = glob.glob(os.path.join(build.CSRC_DIR, "*.cu*"))
     assert {os.path.basename(s) for s in build.sources()} >= {
-        "blur.cu", "detect.cu", "topk.cu", "patches.cu", "patches_bwd.cu"}
+        "blur.cu", "detect.cu", "topk.cu", "patches.cu", "patches_bwd.cu",
+        "conv.cu"}
     pattern = re.compile(r'#\s*include\s*[<"](torch|ATen|c10|pybind11|Python)')
     for path in srcs:
         with open(path) as f:
@@ -71,7 +73,8 @@ def test_one_nvcc_call_into_hashed_build_dir():
     assert cmd[-len(objs):] == objs
     assert set(build.SIGNATURES) == {
         "launch_blur", "launch_detect_octave", "launch_row_topm",
-        "launch_sample_patches", "launch_sample_patches_bwd"}
+        "launch_sample_patches", "launch_sample_patches_bwd",
+        "launch_conv_flat"}
 
 
 def test_missing_nvcc_raises(monkeypatch):
