@@ -54,8 +54,8 @@ SIGNATURES = {
     # null), n, ps, align_corners, stream
     "launch_sample_patches_bwd": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                                   _P, _P, _P, _I, _I, _I, _P],
-    # x (c_pad, rows * w), w (c_pad, kh * kw, o), bias (o,), out (o, rows *
-    # w), c_pad, o, rows, h, w, kh, kw, pad, act, bf16, stream
+    # x (c, n * h * w), w (packed), bias (o,), out (o, n * ho * wo), c, o,
+    # n, h, w, k, stride, pad, act, bf16, stream
     "launch_conv_flat": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P],
 }

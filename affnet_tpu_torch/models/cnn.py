@@ -10,7 +10,7 @@ Counterparts of ``affnet_tpu/models/cnn.py``'s ``input_norm``, ``l2norm``,
 ``EVAL_CONV_LAYOUT`` picks the eval stack, as in the JAX package: "nchw"
 (the default) runs each layer as it stands (``nn.Conv2d``: cuDNN on the
 card); "flat" runs the trunk convolutions through kernel B7 on the flat
-``(C_pad, N*H*W)`` layout (:func:`apply_flat`).  It is read from
+``(C, N*H*W)`` layout (:func:`apply_flat`).  It is read from
 ``AFFNET_EVAL_CONV`` at import, which refuses any other value (the JAX
 package's "cnhw" layout has no kernel and is not ported);
 :func:`eval_layout` sets it for a block or a function.
@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv_flat import activation
+from ..ops.conv_flat import activation, out_extent
 from ..ops.cuda_conv import conv_flat
 
 Tensor = torch.Tensor
@@ -209,6 +209,16 @@ def apply_layers(layers, x: Tensor, dtype: Optional[torch.dtype] = None,
 _ACTS = {nn.ReLU: "relu", nn.Tanh: "tanh", nn.ELU: "elu"}
 
 
+def _rsqrt_rounded(v: Tensor) -> Tensor:
+    """1/sqrt(v) of a float32 ``v``, rounded once to float32: the same bits
+    on the CPU and the card.  ``torch.rsqrt`` in float32 and XLA's CPU
+    rsqrt (an estimate refined by one Newton step) each miss the correctly
+    rounded value by one ulp for a share of inputs, and not for the same
+    ones; a folded weight that lies near a bf16 rounding boundary then
+    rounds to the neighbouring bf16 value on one side only."""
+    return torch.rsqrt(v.double()).float()
+
+
 def _fold(layers, i: int):
     """Conv ``layers[i]`` with a following eval BatchNorm folded into its
     HWIO weights and bias (float32) and a following activation taken for
@@ -220,7 +230,7 @@ def _fold(layers, i: int):
     j = i + 1
     if j < len(layers) and isinstance(layers[j], nn.BatchNorm2d):
         bn = layers[j]
-        scale = torch.rsqrt(bn.running_var + bn.eps)
+        scale = _rsqrt_rounded(bn.running_var + bn.eps)
         w = w * scale
         bias = (bias - bn.running_mean) * scale
         j += 1
@@ -233,7 +243,7 @@ def _fold(layers, i: int):
 
 def apply_flat(layers, x: Tensor, dtype: Optional[torch.dtype] = None,
                use_kernel: bool = True) -> Tensor:
-    """Eval-only layer stack on the flat ``(C_pad, N*H*W)`` layout, the JAX
+    """Eval-only layer stack on the flat ``(C, N*H*W)`` layout, the JAX
     package's ``_apply_spec_flat``.  Takes and returns NCHW like
     :func:`apply_layers`; ``dtype`` (bf16) is the activations' dtype.
 
@@ -241,9 +251,10 @@ def apply_flat(layers, x: Tensor, dtype: Optional[torch.dtype] = None,
       bias (in float32; in bf16 the folded weights are then rounded) and
       the following activation fused runs as one launch of B7
       (``ops/cuda_conv.py``; the plain version for CPU tensors or
-      ``use_kernel=False``).  A VALID conv keeps the first ``h - k + 1``
-      rows and columns of B7's full-extent output; a stride-2 conv keeps
-      the even ones.
+      ``use_kernel=False``) on the real input channels, at the layer's
+      stride and padding: it writes only the outputs that JAX keeps of its
+      full-extent ``conv_flat`` after the crop of a VALID conv and the
+      subsample of a stride-2 conv.
     - A full-cover VALID conv (the 8x8 heads) is one float32 matrix
       product of depth kh*kw*C (bf16 operands in bf16 mode), as in JAX.
     - A 2x2 max pool works on the flat layout; dropout is the identity.
@@ -260,7 +271,7 @@ def apply_flat(layers, x: Tensor, dtype: Optional[torch.dtype] = None,
     if c != 1:
         raise ValueError("apply_flat: patch CNNs take one input channel")
     dt = dtype if dtype is not None else x.dtype
-    xf = F.pad(x.to(dt).reshape(1, n * h * w), (0, 0, 0, 7))
+    xf = x.to(dt).reshape(1, n * h * w)
     head = None
     i = 0
     while i < len(layers):
@@ -272,7 +283,7 @@ def apply_flat(layers, x: Tensor, dtype: Optional[torch.dtype] = None,
             wgt, bias, act, j = _fold(layers, i)
             if kh == kw == h == w and pad == 0 and stride == 1:
                 cin = layer.in_channels
-                xk = xf[:cin].reshape(cin, n, h * w).permute(2, 0, 1)
+                xk = xf.reshape(cin, n, h * w).permute(2, 0, 1)
                 wk = wgt.reshape(kh * kw * cin, o).T.to(dt).float()
                 y = wk @ xk.reshape(h * w * cin, n).float() + bias[:, None]
                 head = activation(y, act).to(dt)          # (O, N)
@@ -283,17 +294,10 @@ def apply_flat(layers, x: Tensor, dtype: Optional[torch.dtype] = None,
                     or layer.padding != (pad, pad) or kh >= min(h, w)
                     or (h * w) % 2):
                 break
-            xf = conv_flat(xf, wgt, bias, (h, w), pad, act,
+            xf = conv_flat(xf, wgt, bias, (h, w), pad, act, stride,
                            use_kernel=use_kernel)
             c = o
-            y4 = xf.reshape(c, n, h, w)
-            if pad == 0:
-                h, w = h - kh + 1, w - kw + 1
-                y4 = y4[:, :, :h, :w]
-            if stride == 2:
-                y4 = y4[:, :, ::2, ::2]
-                h, w = y4.shape[2], y4.shape[3]
-            xf = y4.reshape(c, n * h * w)
+            h, w = out_extent((h, w), kh, pad, stride)
             i = j
         elif (isinstance(layer, nn.MaxPool2d)
               and (layer.kernel_size, layer.stride, layer.padding)
@@ -309,5 +313,5 @@ def apply_flat(layers, x: Tensor, dtype: Optional[torch.dtype] = None,
     if head is not None:
         x_tail = head.T.reshape(n, c, 1, 1)
     else:
-        x_tail = xf[:c].reshape(c, n, h, w).transpose(0, 1)
+        x_tail = xf.reshape(c, n, h, w).transpose(0, 1)
     return apply_layers(layers[i:], x_tail, dtype)

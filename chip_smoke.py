@@ -8,7 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each timed and each fatal on failure:
 
   1. build   — compile csrc/*.cu, one nvcc per source started together, and
-               link them (affnet_tpu_torch/_build/).
+               link them (affnet_tpu_torch/_build/); B7-bf16's kernels must
+               hold tensor-core products (HMMA) and B7's float32 ones FFMA
+               and no HMMA in the built SASS (cuobjdump -sass).
   2. kernels — every kernel of the extraction path against its plain PyTorch
                version on the card, at the shapes the 1080p main path gives
                it, and timed beside the plain version, a PyTorch library call
@@ -55,14 +57,15 @@ Phases, each timed and each fatal on failure:
                and its bound), keypoints identical to the plain fast path on
                the card, the keypoint set against the float32 run (gate flips
                counted), float16 unit-norm descriptors, ms per image.
- 10. conv kernels — kernel B7 (the flat eval layout's convolution) and
-               B7-bf16 against the plain version at every call the flat
-               stack makes on the flagship's inputs (AffNetFast's six trunk
-               layers on the 3000 shape-site patches, HardTFeatNet's 7x7
-               layer on the 2000 desc-site patches), plus the "none" and
-               "elu" activations on random inputs; timed beside the plain
-               version, F.conv2d (cuDNN) computing conv_flat's function and
-               the layer's own, and the bounds of both.
+ 10. conv kernels — kernel B7 (one layer of the flat eval layout: only
+               its kept outputs, from its real channels) and B7-bf16 against
+               the plain version at every call the flat stack makes on the
+               flagship's inputs (AffNetFast's six trunk layers on the 3000
+               shape-site patches, HardTFeatNet's 7x7 layer on the 2000
+               desc-site patches), plus the "none" and "elu" activations on
+               random inputs; timed beside the plain version, F.conv2d
+               (cuDNN) on the layer's own work and that work's bound;
+               B7-bf16's rounding against the float64 sum.
  11. hesaffnet — the HesAffNet program at its command-line defaults (th=-1
                threshold mode, --do-ori: AffNetFast and OriNetFast32 over
                every NMS survivor) with the flat layout on the images of
@@ -104,6 +107,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -130,7 +134,7 @@ from affnet_tpu_torch.ops import (EXTRACTION_KERNELS, FAST_EXTRACTION_KERNELS,
                                   cuda_blur, cuda_conv, cuda_detect,
                                   cuda_patches, cuda_topk, launch_counts,
                                   reset_launch_counts)
-from affnet_tpu_torch.ops.conv_flat import conv_flat_plain
+from affnet_tpu_torch.ops.conv_flat import conv_layer_plain, out_extent
 from affnet_tpu_torch.ops.nms import M_CAND, ROW_S
 from affnet_tpu_torch.ops.patches import (base_lin, batched_tables,
                                           extract_patches_batched,
@@ -1213,41 +1217,96 @@ B7_PER_PROGRAM_PASS = 12          # AffNetFast 6 + OriNetFast32 6
 B7_PER_EXTRACTION = 7             # AffNetFast 6 + HardTFeatNet 1
 
 
-def conv_strides(net) -> list:
-    """The stride of each conv layer of ``net``, in order: B7's calls run
-    the first of them (a stride-2 layer at stride 1, subsampled after)."""
-    return [layer.stride[0] for layer in net.features
-            if isinstance(layer, torch.nn.Conv2d)]
-
-
 _TORCH_ACTS = {"none": lambda y: y, "relu": torch.relu, "tanh": torch.tanh,
                "elu": F.elu}
 
 
+def _nchw(x, hw):
+    c, total = x.shape
+    h, wd = hw
+    return x.reshape(c, total // (h * wd), h, wd).transpose(0, 1)
+
+
+def bf16_rounding(x, w, bias, hw, pad, stride, max_patches: int = 256):
+    """How B7-bf16's sums round, against a float32 chain: on the first
+    ``max_patches`` patches, without the activation, the share of outputs
+    of the kernel and of the plain version that differ from the float64
+    sum of the same bf16 products rounded to bf16, and the largest such
+    difference in bf16 ulps."""
+    h, wd = hw
+    xs = x[:, :max_patches * h * wd].contiguous()
+    got = cuda_conv.conv_flat_cuda(xs, w, bias, hw, pad, "none", stride)
+    plain = conv_layer_plain(xs, w, bias, hw, pad, "none", stride)
+    w64 = w.to(torch.bfloat16).double().permute(3, 2, 0, 1)
+    exact = F.conv2d(_nchw(xs, hw).double(), w64, bias.double(),
+                     stride=stride, padding=pad)
+    exact = exact.transpose(0, 1).reshape(got.shape).float().to(
+        torch.bfloat16)
+
+    def ulps(a):
+        ia = a.view(torch.int16).int()
+        ie = exact.view(torch.int16).int()
+        return (ia - ie).abs()
+
+    gu, pu = ulps(got), ulps(plain)
+    return dict(kernel_share=float((gu > 0).float().mean()),
+                kernel_max_ulps=int(gu.max()),
+                plain_share=float((pu > 0).float().mean()),
+                plain_max_ulps=int(pu.max()), n=int(got.numel()))
+
+
+def log_conv_sass() -> None:
+    """Whether B7-bf16's kernels issue tensor-core products (HMMA in the
+    built library's SASS, from ``cuobjdump -sass``) and B7's float32
+    kernels float32 FMAs (FFMA) and no HMMA; fatal if not."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    require(os.path.exists(tool), "cuobjdump not found: cannot read the "
+            "kernels' SASS")
+    sass = subprocess.run([tool, "-sass", build.library_path()],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        fname = block.split("\n", 1)[0].strip()
+        for kind in ("conv_bf16_kernel", "conv_f32_kernel"):
+            if kind in fname:
+                c = counts.setdefault(kind, [0, 0, 0])
+                c[0] += 1
+                c[1] += block.count("HMMA")
+                c[2] += block.count("FFMA")
+    bf, f32 = counts.get("conv_bf16_kernel"), counts.get("conv_f32_kernel")
+    require(bf is not None and f32 is not None, f"conv kernels not found in "
+            f"the SASS of {build.library_path()}")
+    log(f"SASS (cuobjdump -sass): B7-bf16 {bf[0]} kernels, {bf[1]} HMMA "
+        f"instructions; B7 float32 {f32[0]} kernels, {f32[2]} FFMA, "
+        f"{f32[1]} HMMA")
+    require(bf[1] >= bf[0], "B7-bf16 kernels without HMMA instructions")
+    require(f32[1] == 0 and f32[2] > 0, "B7 float32 kernels must use FFMA "
+            "and no tensor-core instruction")
+
+
 def check_conv(name, x, w, bias, hw, pad, act, stride=1,
                reps: int = 20) -> dict:
-    """B7 (B7-bf16 for bf16 x) against its plain version on the card:
-    float32 within 1e-5 of the output's largest magnitude (another
-    summation order; the card's tanhf/expm1f within a few ulps), bf16
-    within that plus one bf16 ulp of the value (a float32 sum that differs
-    in its last bits may round to the neighbouring bf16 value).  Timed
-    beside the plain version and two cuDNN calls (TF32 off) on the NCHW
-    tensor: ``library_ms`` computes conv_flat's own function (F.conv2d at
-    stride 1 with the same padding over the C_pad channels, full extent,
-    plus bias and activation), ``layer_library_ms`` only what the layer
-    keeps (its C channels at its ``stride``; a VALID conv's output only),
-    whose difference to the kept part of B7's output is logged
-    (``layer_err``; cuDNN picks its own algorithm and, in bf16, rounds
-    before the bias).  ``bound_ms`` is over conv_flat's work,
-    ``layer_bound_ms`` over the layer's."""
+    """B7 (B7-bf16 for bf16 x) against its plain version (the layer's own
+    work, conv_layer_plain) on the card: float32 within 1e-5 of the
+    output's largest magnitude (another summation order; the card's
+    tanhf/expm1f within a few ulps), bf16 within that plus one bf16 ulp of
+    the value (a float32 sum that differs in its last bits may round to the
+    neighbouring bf16 value).  Timed beside the plain version and cuDNN
+    (``library_ms``: F.conv2d, TF32 off, on the NCHW view of the same
+    input at the layer's stride and padding, plus bias and activation;
+    its difference to the kernel is logged as ``layer_err``: cuDNN picks
+    its own algorithm and, in bf16, rounds before the bias).  ``bound_ms``
+    is over the layer's own work: the input read once, the kept outputs
+    written once, 2*k*k*C*O operations per kept output."""
     bf16 = x.dtype == torch.bfloat16
     x, w = x.contiguous(), w.contiguous()   # as conv_flat passes them
 
     def kernel():
-        return cuda_conv.conv_flat_cuda(x, w, bias, hw, pad, act)
+        return cuda_conv.conv_flat_cuda(x, w, bias, hw, pad, act, stride)
 
     def plain():
-        return conv_flat_plain(x, w, bias, hw, pad, act)
+        return conv_layer_plain(x, w, bias, hw, pad, act, stride)
 
     with float32_math():
         got, ref = kernel().float(), plain().float()
@@ -1257,83 +1316,72 @@ def check_conv(name, x, w, bias, hw, pad, act, stride=1,
         require(bool(torch.all((got - ref).abs() <= tol)),
                 f"conv {name}: max err {err} (largest |value| {scale})")
         del ref, tol
-        c_pad, total = x.shape
-        kh, kw, c, o = w.shape
+        c, total = x.shape
+        kh, kw, _, o = w.shape
         h, wd = hw
         n = total // (h * wd)
-        oh = (h + 2 * pad - kh) // stride + 1
-        ow = (wd + 2 * pad - kw) // stride + 1
-        # What the layer keeps of B7's output, as the flat stack crops and
-        # subsamples it.
-        kept = got.reshape(o, n, h, wd)[:, :, :(oh - 1) * stride + 1:stride,
-                                        :(ow - 1) * stride + 1:stride]
-        x4 = x.reshape(c_pad, n, h, wd).transpose(0, 1).contiguous()
-        w4 = F.pad(w.permute(3, 2, 0, 1), (0, 0, 0, 0, 0, c_pad - c)).to(
-            x.dtype).contiguous()
-        x4c, w4c = x4[:, :c].contiguous(), w4[:, :c].contiguous()
+        oh, ow = out_extent(hw, kh, pad, stride)
+        x4 = _nchw(x, hw).contiguous()
+        w4 = w.permute(3, 2, 0, 1).to(x.dtype).contiguous()
         b = bias.to(x.dtype)
         act_fn = _TORCH_ACTS[act]
 
         def library():
-            return act_fn(F.conv2d(x4, w4, b, padding=pad))
+            return act_fn(F.conv2d(x4, w4, b, stride=stride, padding=pad))
 
-        def layer_library():
-            return act_fn(F.conv2d(x4c, w4c, b, stride=stride, padding=pad))
-
+        layer_err = float((library().float().transpose(0, 1).reshape(
+            o, -1) - got).abs().max())
+        del got
         es = x.element_size()
         peak = PEAK_BF16_FLOP_PER_S if bf16 else PEAK_F32_FLOP_PER_S
-
-        def bound(ch, out_pixels):
-            n_bytes = (ch * total + o * out_pixels) * es + (
-                ch * kh * kw * o + o) * 4
-            t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-            t_ops = 2.0 * kh * kw * ch * o * out_pixels / peak * 1e3
-            return (max(t_bytes, t_ops),
-                    "bytes" if t_bytes >= t_ops else "operations")
-
-        layer_err = float((layer_library().float()
-                           - kept.transpose(0, 1)).abs().max())
-        del got, kept
-        b_ms, b_by = bound(c_pad, total)
-        lb_ms, lb_by = bound(c, n * oh * ow)
+        n_bytes = (c * total + o * n * oh * ow) * es + (c * kh * kw * o
+                                                        + o) * 4
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = 2.0 * kh * kw * c * o * n * oh * ow / peak * 1e3
         res = dict(name=f"conv_{'bf16_' if bf16 else ''}{name}", err=err,
                    layer_err=layer_err,
-                   shape=(c_pad, c, o, kh, stride, n, h, wd, pad, act),
+                   shape=(c, o, kh, stride, pad, n, h, wd, act),
                    ms=time_ms(kernel, reps),
                    event_ms=event_median_ms(kernel, reps),
                    plain_ms=time_ms(plain, max(2, reps // 4)),
                    library_ms=time_ms(library, reps),
-                   layer_library_ms=time_ms(layer_library, reps),
-                   bound_ms=b_ms, bound_by=b_by,
-                   layer_bound_ms=lb_ms, layer_bound_by=lb_by)
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if bf16:
+            res["rounding"] = bf16_rounding(x, w, bias, hw, pad, stride)
     return res
 
 
 def log_conv(r: dict) -> None:
-    log(f"kernel {r['name']} (C_pad, C, O, k, stride, N, H, W, pad, act) "
+    log(f"kernel {r['name']} (C, O, k, stride, pad, N, H, W, act) "
         f"{r['shape']}: max_abs_err {r['err']:.3g} ms {r['ms']:.4f} "
         f"event_median_ms {r['event_ms']:.4f} plain_ms {r['plain_ms']:.4f} "
         f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-        f"({r['bound_by']}); the layer's own work: max |diff| to cuDNN "
-        f"{r['layer_err']:.3g} library_ms "
-        f"{r['layer_library_ms']:.4f} bound_ms {r['layer_bound_ms']:.4f} "
-        f"({r['layer_bound_by']})")
+        f"({r['bound_by']}); max |diff| to cuDNN {r['layer_err']:.3g}")
+    if "rounding" in r:
+        q = r["rounding"]
+        log(f"kernel {r['name']} rounding against the float64 sum rounded "
+            f"to bf16 ({q['n']} outputs, no activation): kernel differs in "
+            f"{q['kernel_share']:.4%} (max {q['kernel_max_ulps']} ulp), "
+            f"the plain float32 chain in {q['plain_share']:.4%} (max "
+            f"{q['plain_max_ulps']} ulp)")
 
 
-def check_conv_calls(run, names, strides, reps: int = 20) -> dict:
+def check_conv_calls(run, names, reps: int = 20) -> dict:
     """``run()`` under the flat layout, with each B7 call it makes held
     against the plain version and timed (check_conv) on the inputs the
     path gives it, before the path goes on with the kernel's output.  The
-    i-th call is ``names[i]``, a layer of stride ``strides[i]``."""
+    i-th call is ``names[i]``."""
     res = {}
     orig = cnn.conv_flat
 
-    def spy(x, w, bias, img_hw, pad, act, use_kernel=True):
+    def spy(x, w, bias, img_hw, pad, act, stride, use_kernel=True):
         i = len(res)
         require(i < len(names), f"more B7 calls than the layers {names}")
         res[names[i]] = check_conv(names[i], x, w, bias, img_hw, pad, act,
-                                   strides[i], reps)
-        return orig(x, w, bias, img_hw, pad, act, use_kernel=use_kernel)
+                                   stride, reps)
+        return orig(x, w, bias, img_hw, pad, act, stride,
+                    use_kernel=use_kernel)
 
     cnn.conv_flat = spy
     try:
@@ -1384,8 +1432,7 @@ def phase_conv(det, fast_det, img, seed) -> dict:
         for net, patches, names in ((d.shape_net, shape_patches, aff),
                                     (d.desc_net, desc_patches, ["tfeat1"])):
             checked = check_conv_calls(
-                functools.partial(_net_pass, net, patches), names,
-                conv_strides(net))
+                functools.partial(_net_pass, net, patches), names)
             res.update({f"conv_{tag}{k}": r for k, r in checked.items()})
     gen = torch.Generator(device="cpu").manual_seed(seed)
     for act in ("none", "elu"):
@@ -1432,9 +1479,7 @@ def phase_hesaffnet(imgs, device, smi) -> dict:
         functools.partial(hesaffnet.image_to_ells, det, imgs[0],
                           do_ori=True),
         [f"hes_aff{i}" for i in range(1, 7)]
-        + [f"hes_ori{i}" for i in range(1, 7)],
-        conv_strides(det.shape_net)[:6] + conv_strides(det.ori_net)[:6],
-        reps=5)
+        + [f"hes_ori{i}" for i in range(1, 7)], reps=5)
     torch.cuda.synchronize()
     for r in convs.values():
         log_conv(r)
@@ -1591,6 +1636,7 @@ def run_phases(args) -> int:
     t = time.perf_counter()
     build.library()
     log(f"build_seconds: {time.perf_counter() - t:.3f}")
+    log_conv_sass()
 
     t = time.perf_counter()
     aff, desc = pretrained_nets()

@@ -27,7 +27,8 @@ from affnet_tpu.models import zoo as jzoo
 from affnet_tpu.ops import pallas_conv
 from affnet_tpu_torch.models import cnn, params_from_jax, zoo
 from affnet_tpu_torch.ops import launch_counts
-from affnet_tpu_torch.ops.conv_flat import conv_flat_plain
+from affnet_tpu_torch.ops.conv_flat import (ACTIVATIONS, conv_flat_plain,
+                                            conv_layer_plain)
 from affnet_tpu_torch.ops.cuda_conv import conv_flat, pack_weights
 
 # (C_pad, C, O, k, pad, H): the layers the flat stack puts through B7 --
@@ -115,23 +116,109 @@ def test_conv_flat_valid_masks_read_past_the_patch_edge():
 def test_conv_flat_checks_and_cpu_dispatch():
     x, w, b, hw, pad = _inputs("aff1", seed=0)
     xt, wt, bt = map(torch.from_numpy, (x, w, b))
+    xt = xt[:1]                                  # the layer's real C
     before = launch_counts()
-    out = conv_flat(xt, wt, bt, hw, pad, "relu")
+    out = conv_flat(xt, wt, bt, hw, pad, "relu", stride=2)
     assert launch_counts() == before            # CPU: the plain version
-    torch.testing.assert_close(out, conv_flat_plain(xt, wt, bt, hw, pad,
-                                                    "relu"), rtol=0, atol=0)
+    torch.testing.assert_close(out, conv_layer_plain(xt, wt, bt, hw, pad,
+                                                     "relu", 2),
+                               rtol=0, atol=0)
+    assert out.shape == (16, N_PATCHES * 16 * 16)
     with pytest.raises(ValueError, match="multiple of 8"):
-        conv_flat_plain(xt[:5], wt, bt, hw, pad)
+        conv_flat_plain(torch.from_numpy(x)[:5], wt, bt, hw, pad)
     with pytest.raises(ValueError, match="activation"):
-        conv_flat_plain(xt, wt, bt, hw, pad, "gelu")
+        conv_flat_plain(torch.from_numpy(x), wt, bt, hw, pad, "gelu")
     with pytest.raises(ValueError, match="pad"):
-        conv_flat_plain(xt, wt, bt, hw, 3)
-    # The kernel's weight layout: (C_pad, taps, O), zero padded channels,
-    # values rounded to the activations' dtype.
-    wk = pack_weights(wt, 8, torch.bfloat16)
-    assert wk.shape == (8, 9, 16) and wk.dtype == torch.float32
-    assert torch.equal(wk[1:], torch.zeros_like(wk[1:]))
-    assert torch.equal(wk[0], wt[:, :, 0].reshape(9, 16).bfloat16().float())
+        conv_flat_plain(torch.from_numpy(x), wt, bt, hw, 3)
+    with pytest.raises(ValueError, match="C=8 rows"):
+        conv_layer_plain(torch.from_numpy(x), wt, bt, hw, pad)
+    with pytest.raises(ValueError, match="stride"):
+        conv_layer_plain(xt, wt, bt, hw, pad, stride=3)
+    with pytest.raises(ValueError, match="pad"):
+        conv_layer_plain(xt, wt, bt, hw, 2)
+    # The kernel's weight layouts: float32 (C, taps, O); bf16 (taps, O,
+    # Cp) with Cp a multiple of 16, and (O, K) with K the taps rounded up
+    # to 16 for one input channel; values rounded to bf16.
+    assert torch.equal(pack_weights(wt, torch.float32),
+                       wt.permute(2, 0, 1, 3).reshape(1, 9, 16))
+    wk = pack_weights(wt, torch.bfloat16)
+    assert wk.shape == (16, 16) and wk.dtype == torch.bfloat16
+    assert torch.equal(wk[:, 9:], torch.zeros_like(wk[:, 9:]))
+    assert torch.equal(wk[:, :9], wt.reshape(9, 16).T.bfloat16())
+    w3 = torch.from_numpy(_inputs("aff4", seed=0)[1])
+    wk3 = pack_weights(w3, torch.bfloat16)
+    assert wk3.shape == (9, 32, 32)
+    assert torch.equal(wk3, w3.reshape(9, 32, 32).transpose(1, 2).bfloat16())
+    wk24 = pack_weights(w3[:, :, :24], torch.bfloat16)
+    assert wk24.shape == (9, 32, 32)
+    assert torch.equal(wk24[:, :, 24:], torch.zeros_like(wk24[:, :, 24:]))
+
+
+# (C, O, k, pad, stride, H): every layer shape the zoo's flat stacks put
+# through B7 -- AffNetFast's and OriNetFast32's trunk on 32x32 patches,
+# OriNetFast's on 16x16, HardTFeatNet's 7x7 VALID layer and HardNet's
+# trunk -- at the layer's own stride, padding and real channel count.
+LAYER_SHAPES = {
+    "aff1": (1, 16, 3, 1, 1, 32),
+    "aff2": (16, 16, 3, 1, 1, 32),
+    "aff3": (16, 32, 3, 1, 2, 32),
+    "aff4": (32, 32, 3, 1, 1, 16),
+    "aff5": (32, 64, 3, 1, 2, 16),
+    "aff6": (64, 64, 3, 1, 1, 8),
+    "ori16_3": (16, 32, 3, 1, 2, 16),
+    "ori16_5": (32, 64, 3, 1, 2, 8),
+    "ori16_6": (64, 64, 3, 1, 1, 4),
+    "tfeat1": (1, 32, 7, 0, 1, 32),
+    "hard1": (1, 32, 3, 1, 1, 32),
+    "hard3": (32, 64, 3, 1, 2, 32),
+    "hard5": (64, 128, 3, 1, 2, 16),
+    "hard6": (128, 128, 3, 1, 1, 8),
+}
+
+
+def _jax_layer(x, w, b, hw, pad, act, stride, dtype):
+    """JAX's flat stack on one layer: the interpreted Pallas conv_flat on
+    the rows padded to C_pad, then its own crop (``_onehot_first``) and
+    subsample (``_downsample2_onehot``)."""
+    c = x.shape[0]
+    c_pad = -(-c // 8) * 8
+    xp = np.zeros((c_pad, x.shape[1]), np.float32)
+    xp[:c] = x
+    h, wd = hw
+    k, o = w.shape[0], w.shape[3]
+    y = pallas_conv.conv_flat(
+        jnp.asarray(xp).astype(dtype), jnp.asarray(w).astype(dtype),
+        jnp.asarray(b), img_hw=hw, pad=pad, act=act, n_patches=N_PATCHES)
+    y4 = y.reshape(o, N_PATCHES, h, wd)
+    dname = jnp.dtype(dtype).name
+    if pad == 0:
+        ho, wo = h - k + 1, wd - k + 1
+        y4 = jnp.einsum("cnhw,wx->cnhx", y4, jcnn._onehot_first(wd, wo, dname))
+        y4 = jnp.einsum("cnhx,hg->cngx", y4, jcnn._onehot_first(h, ho, dname))
+    if stride == 2:
+        y4 = jcnn._downsample2_onehot(y4)
+    return np.asarray(y4.reshape(o, -1).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layer", sorted(LAYER_SHAPES))
+def test_conv_layer_plain_matches_jax_crop_subsample(layer, dtype):
+    """The kernel's plain version (the layer's own work) against JAX's
+    interpreted conv_flat followed by JAX's crop and subsample: float32
+    within 1e-5 of the largest magnitude, bf16 plus one bf16 ulp."""
+    c, o, k, pad, stride, h = LAYER_SHAPES[layer]
+    rng = np.random.RandomState(sorted(LAYER_SHAPES).index(layer))
+    x = rng.randn(c, N_PATCHES * h * h).astype(np.float32)
+    w = (rng.randn(k, k, c, o) / np.sqrt(k * k * c)).astype(np.float32)
+    b = (0.1 * rng.randn(o)).astype(np.float32)
+    act = ACTIVATIONS[sorted(LAYER_SHAPES).index(layer) % 4]
+    ref = _jax_layer(x, w, b, (h, h), pad, act, stride, getattr(jnp, dtype))
+    got = conv_layer_plain(torch.from_numpy(x).to(getattr(torch, dtype)),
+                           torch.from_numpy(w), torch.from_numpy(b), (h, h),
+                           pad, act, stride).float().numpy()
+    ho = (h + 2 * pad - k) // stride + 1
+    assert got.shape == ref.shape == (o, N_PATCHES * ho * ho)
+    _assert_close(got, ref, dtype == "bfloat16")
 
 
 # ---------------------------------------------------------------------------
@@ -235,9 +322,10 @@ def test_flat_stack_launch_plan():
     calls = []
     orig = cnn.conv_flat
 
-    def spy(x, w, bias, img_hw, pad, act, use_kernel=True):
-        calls.append((tuple(w.shape), img_hw, pad, act))
-        return orig(x, w, bias, img_hw, pad, act, use_kernel=use_kernel)
+    def spy(x, w, bias, img_hw, pad, act, stride, use_kernel=True):
+        calls.append((tuple(w.shape), img_hw, pad, act, stride))
+        return orig(x, w, bias, img_hw, pad, act, stride,
+                    use_kernel=use_kernel)
 
     expect = {"AffNetFast": 6, "OriNetFast32": 6, "OriNetFast": 6,
               "HardTFeatNet": 1, "HardNet": 6}
@@ -254,11 +342,43 @@ def test_flat_stack_launch_plan():
                 net(torch.rand(2, net.ps, net.ps))
             assert len(calls) == expect[name], (name, calls)
             if name == "HardTFeatNet":
-                assert calls == [((7, 7, 1, 32), (32, 32), 0, "tanh")]
+                assert calls == [((7, 7, 1, 32), (32, 32), 0, "tanh", 1)]
             if name == "AffNetFast":
                 assert [c[1] for c in calls] == [(32, 32)] * 3 + [
                     (16, 16)] * 2 + [(8, 8)]
                 assert {c[3] for c in calls} == {"relu"}
+                assert [c[4] for c in calls] == [1, 1, 2, 1, 2, 1]
+    finally:
+        cnn.conv_flat = orig
+
+
+def test_apply_flat_feeds_each_layer_its_real_channels():
+    """The flat stack hands B7 the layer's own input: one row for the
+    1-channel input (no zero rows padded to 8), and each layer's output
+    (O, N*Ho*Wo) straight to the next layer, with no crop or subsample
+    copy in between."""
+    calls = []
+    orig = cnn.conv_flat
+
+    def spy(x, w, bias, img_hw, pad, act, stride, use_kernel=True):
+        y = orig(x, w, bias, img_hw, pad, act, stride, use_kernel=use_kernel)
+        calls.append((x, y))
+        return y
+
+    try:
+        cnn.conv_flat = spy
+        for cls in (zoo.AffNetFast, zoo.OriNetFast32, zoo.HardTFeatNet):
+            calls.clear()
+            net = cls()
+            with _layout("flat"), torch.no_grad():
+                net(torch.rand(2, net.ps, net.ps))
+            convs = [l for l in net.features
+                     if isinstance(l, torch.nn.Conv2d)][:len(calls)]
+            assert [x.shape[0] for x, _ in calls] == [
+                l.in_channels for l in convs]
+            assert calls[0][0].shape == (1, 2 * net.ps * net.ps)
+            for (_, y), (x, _) in zip(calls, calls[1:]):
+                assert x is y
     finally:
         cnn.conv_flat = orig
 
