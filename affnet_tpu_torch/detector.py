@@ -51,9 +51,10 @@ from torch import nn
 from . import resolve_device
 from .laf import (check_touch_boundary, denormalize_lafs, eig2x2_vals,
                   sc_y_x_to_lafs)
-from .ops.cuda_detect import detect_octave
+from .ops.cuda_detect import (RefineTables, dedup, detect_stencil,
+                               n_counters, refine)
 from .ops.cuda_patches import extract_patches_pyramid
-from .ops.nms import border_mask, masked_topk, update_octave_map
+from .ops.nms import border_mask, masked_topk
 from .ops.patches import sample_extents, select_levels_for_lafs
 from .ops.scalespace import PyramidPlan, build_flat_pyramid, make_plan
 from .utils import float32_math
@@ -118,7 +119,8 @@ def _detection_tables(plan: PyramidPlan):
 class _Plan:
     """A pyramid plan and its tables on the device."""
 
-    def __init__(self, plan: PyramidPlan, device: torch.device):
+    def __init__(self, plan: PyramidPlan, device: torch.device,
+                 border: int):
         self.plan = plan
         offs, hs, ws = plan.level_dims_padded()
 
@@ -133,6 +135,26 @@ class _Plan:
         self.ext_levels = dev(ext, torch.int64)
         self.oct_ids = dev(octs, torch.int64)
         self.level_ids = dev(lvls, torch.int64)
+        self.refine_tables = RefineTables(
+            self.det_offsets, self.ext_levels, self.row_offsets,
+            self.heights, self.widths,
+            *RefineTables.level_tables(plan, device))
+        # Per octave: its first entry in the response vector and h * w.
+        n_centers = plan.levels_per_octave - 2
+        self.octaves = [(det_offsets[o * n_centers], h * w)
+                        for o, (h, w) in enumerate(plan.octave_shapes)]
+        self.border = border
+        self._device = device
+        self._border_masks = None
+
+    @property
+    def border_masks(self) -> list:
+        """Each octave's border mask (the plain stencil's), made once."""
+        if self._border_masks is None:
+            self._border_masks = [
+                border_mask(h, w, self.border, device=self._device)
+                for h, w in self.plan.octave_shapes]
+        return self._border_masks
 
     @property
     def tables(self):
@@ -178,7 +200,8 @@ class ScaleSpaceAffinePatchExtractor:
         if (h, w) not in self._plans:
             self._plans[(h, w)] = _Plan(
                 make_plan(h, w, self.cfg.n_levels, self.cfg.init_sigma,
-                          self.cfg.border), self.device)
+                          self.cfg.border), self.device,
+                int(self.cfg.mr_size))
         return self._plans[(h, w)]
 
     # ------------------------------------------------------------------
@@ -186,34 +209,35 @@ class ScaleSpaceAffinePatchExtractor:
     # ------------------------------------------------------------------
 
     def _responses(self, img: Tensor, p: _Plan):
-        """Pyramid and per-octave detection: the row-padded level buffer and
-        the concatenated NMS response, scale, y and x vectors."""
+        """Pyramid and detection: the row-padded level buffer and the flat
+        vector of border-masked, deduplicated NMS responses (B1 per level,
+        B2's stencil per octave, its dedup once)."""
         cfg, plan, uk = self.cfg, p.plan, self.use_kernels
         pyr, flat = build_flat_pyramid(img, plan, py2=cfg.py2,
                                        use_kernel=uk)
-        resp_chunks, sc_chunks, y_chunks, x_chunks = [], [], [], []
-        for o in range(plan.n_octaves):
+        n_centers = plan.levels_per_octave - 2
+        resp = torch.empty(p.total, dtype=img.dtype, device=img.device)
+        counters = torch.zeros((plan.n_octaves,
+                                n_counters(plan.levels_per_octave)),
+                               dtype=torch.int32, device=img.device)
+        plain = not (uk and img.is_cuda)
+        for o, (off, hw) in enumerate(p.octaves):
             h, w = plan.octave_shapes[o]
-            octmap = torch.zeros((h, w), dtype=img.dtype, device=img.device)
-            bmask = border_mask(h, w, int(cfg.mr_size), device=img.device,
-                                dtype=img.dtype)
-            maps = detect_octave(pyr[o], plan.sigmas[o], cfg.effective_th,
-                                 use_kernel=uk)
-            for nmsed_raw, sc, yy, xx in maps:
-                nmsed, octmap = update_octave_map(octmap, nmsed_raw * bmask)
-                resp_chunks.append(nmsed.reshape(-1))
-                sc_chunks.append(sc.reshape(-1))
-                y_chunks.append(yy.reshape(-1))
-                x_chunks.append(xx.reshape(-1))
-        return (flat, torch.cat(resp_chunks), torch.cat(sc_chunks),
-                torch.cat(y_chunks), torch.cat(x_chunks))
+            resp_o = resp[off:off + n_centers * hw].view(n_centers, h, w)
+            detect_stencil(pyr[o], plan.sigmas[o], cfg.effective_th,
+                           p.border, resp_o, counters[o],
+                           bmask=p.border_masks[o] if plain else None,
+                           use_kernel=uk)
+        dedup(resp, counters, p.octaves, use_kernel=uk)
+        return flat, resp
 
     def _multiscale_detect(self, img: Tensor, p: _Plan) -> Dict[str, Tensor]:
         """Pyramid + per-octave detection + global top-k; threshold mode
         keeps every survivor in scan order instead (none: one invalid
-        candidate, so the stages keep their shapes)."""
+        candidate, so the stages keep their shapes).  (sigma, y, x) are
+        computed at the kept indices only (B2's refine)."""
         cfg = self.cfg
-        flat, resp_all, sc_all, y_all, x_all = self._responses(img, p)
+        flat, resp_all = self._responses(img, p)
         survivor = resp_all > 0
         n_detected = survivor.sum()
         if cfg.threshold_mode:
@@ -225,7 +249,8 @@ class ScaleSpaceAffinePatchExtractor:
             vals, idxs, valid = masked_topk(
                 resp_all, min(cfg.prefilter_count(), p.total),
                 use_kernel=self.use_kernels)
-        sc_y_x = torch.stack([sc_all[idxs], y_all[idxs], x_all[idxs]], -1)
+        sc_y_x = refine(flat, idxs, p.refine_tables, cfg.effective_th,
+                        use_kernel=self.use_kernels)
         det_lvl = torch.searchsorted(p.det_offsets, idxs, right=True) - 1
         return {
             "flat": flat,

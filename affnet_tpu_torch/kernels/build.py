@@ -36,11 +36,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # argtypes of every exported function (pointers and the stream as void*).
 SIGNATURES = {
-    # in, tmp, out, h, w, taps (host), n_taps, stream
-    "launch_blur": [_P, _P, _P, _I, _I, _P, _I, _P],
-    # levels (L, h, w), out (L-2, 4, h, w), h, w, L, sigma (host),
-    # sigma^4 (host), th, stream
-    "launch_detect_octave": [_P, _P, _I, _I, _I, _P, _P, _F, _P],
+    # in, in_pitch, out, out_pitch, down (or null), down_pitch, in_pad (or
+    # null), h, w, pad_to, taps (device), taps (host), n_taps, stream
+    "launch_blur": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _I,
+                    _P],
+    # levels, level_stride, pitch, h, w, L, sigma^4 (host), th, border,
+    # resp (L-2, h, w), counters (2^(L-2) - 1), stream
+    "launch_detect_stencil": [_P, _I, _I, _I, _I, _I, _P, _F, _I, _P, _P,
+                              _P],
+    # resp, counters (n_oct, 2^n_centers - 1), resp offsets (host int64),
+    # h * w (host int64), n_oct, n_centers, stream
+    "launch_detect_dedup": [_P, _P, _P, _P, _I, _I, _P],
+    # buf, pitch, idx (n,), n, det_off, ext_level, n_det, row_off, heights,
+    # widths, sigma, sigma^4, th, out (n, 3), stream
+    "launch_detect_refine": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
+                             _F, _P, _P],
     # x (rows, s), vals (rows, m), cols (rows, m), leftover (rows,), rows,
     # s, m, stream
     "launch_row_topm": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -183,6 +193,22 @@ def host_floats(values) -> ctypes.Array:
     kernel's parameters, so it needs no device copy."""
     vals = [float(v) for v in values]
     return (ctypes.c_float * len(vals))(*vals)
+
+
+def check_rows(t: torch.Tensor, name: str, shape=None) -> None:
+    """Raise unless ``t`` is a float32 (H, W) CUDA tensor with unit column
+    stride and any row pitch (a level of the row-padded buffer), of
+    ``shape`` when given."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32 or t.dim() != 2:
+        raise ValueError(f"{name}: expected float32 (H, W), got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if t.stride(1) != 1 and t.shape[1] > 1:
+        raise ValueError(f"{name}: expected unit column stride")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

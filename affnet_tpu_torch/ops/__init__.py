@@ -10,6 +10,8 @@ from . import cuda_blur, cuda_conv, cuda_detect, cuda_patches, cuda_topk
 COUNTERS = {
     "blur": (cuda_blur, "launches"),
     "detect": (cuda_detect, "launches"),
+    "dedup": (cuda_detect, "launches_dedup"),
+    "refine": (cuda_detect, "launches_refine"),
     "topk": (cuda_topk, "launches"),
     "patches": (cuda_patches, "launches"),
     "patches_bf16": (cuda_patches, "launches_bf16"),
@@ -22,8 +24,9 @@ COUNTERS = {
 }
 
 # The kernels the extraction path must launch, in float32 and in fast mode.
-EXTRACTION_KERNELS = ("blur", "detect", "topk", "patches")
-FAST_EXTRACTION_KERNELS = ("blur", "detect", "topk", "patches_bf16")
+EXTRACTION_KERNELS = ("blur", "detect", "dedup", "refine", "topk", "patches")
+FAST_EXTRACTION_KERNELS = ("blur", "detect", "dedup", "refine", "topk",
+                           "patches_bf16")
 
 
 def launch_counts() -> dict:

@@ -3,8 +3,9 @@ holds every level.
 
 Counterpart of ``affnet_tpu/ops/scalespace.py``: the octave count, level
 shapes and blur sigmas are computed on the host from (H, W) into a
-:class:`PyramidPlan`; the pyramid is then built level by level with the B1
-blur (:mod:`.cuda_blur`).  Numerics follow the reference exactly:
+:class:`PyramidPlan`; the pyramid is then written level by level into the
+row-padded buffer by the B1 blur (:mod:`.cuda_blur`).  Numerics follow the
+reference exactly:
 
   - initial blur sigma = sqrt(init_sigma^2 - 0.5^2)
   - per-level blur sigma = curSigma * sqrt(step^2 - 1), step = 2^(1/nLevels)
@@ -18,12 +19,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .cuda_blur import blur
+from .cuda_blur import blur, blur_level
 
 Tensor = torch.Tensor
 
@@ -130,45 +131,76 @@ def make_plan(height: int, width: int, n_levels: int = 3,
                        sigmas=tuple(sigmas), pix_dists=tuple(pix_dists))
 
 
-def build_pyramid(img: Tensor, plan: PyramidPlan, py2: bool = False,
-                  use_kernel: bool = True) -> List[Tensor]:
-    """All pyramid levels: one ``(levels_per_octave, h, w)`` tensor per
-    octave.  ``use_kernel=False`` runs the plain blur on any device."""
+def pyramid_views(buf: Tensor, plan: PyramidPlan) -> List[Tensor]:
+    """Each octave's levels as a ``(levels_per_octave, h, w)`` view of the
+    row-padded buffer (row pitch: the buffer's width)."""
+    wmax = buf.shape[1]
+    offs = plan.row_offsets()
+    n = plan.levels_per_octave
+    views = []
+    for o, (h, w) in enumerate(plan.octave_shapes):
+        r0 = int(offs[plan.flat_index(o, 0)])
+        views.append(buf[r0:r0 + n * h].view(n, h, wmax)[:, :, :w])
+    return views
+
+
+@dataclasses.dataclass(frozen=True)
+class BlurStep:
+    """One B1 launch of the pyramid: blur level ``src`` ((octave, level), or
+    None for the image) with ``taps`` into level ``dst``; with ``down``, also
+    write the stride-2 samples there; with ``zero_src_pad``, zero the
+    source's padding too."""
+    src: Optional[Tuple[int, int]]
+    dst: Tuple[int, int]
+    taps: np.ndarray
+    down: Optional[Tuple[int, int]] = None
+    zero_src_pad: bool = False
+
+
+def pyramid_steps(plan: PyramidPlan, py2: bool = False) -> List[BlurStep]:
+    """The pyramid's B1 launches in order: the initial blur, then per
+    octave each level from the one before it, the launch of level
+    ``n_levels`` writing the next octave's first level (:func:`downsample2`)
+    and the first launch of an octave zeroing that level's padding."""
     step = 2.0 ** (1.0 / plan.n_levels)
     cur_sigma = 0.5
     if plan.init_sigma > cur_sigma:
-        sigma = math.sqrt(plan.init_sigma ** 2 - cur_sigma ** 2)
-        curr = gaussian_blur(img, sigma, py2=py2, use_kernel=use_kernel)
+        taps0 = gauss_kernel_1d(
+            math.sqrt(plan.init_sigma ** 2 - cur_sigma ** 2), py2=py2)
     else:
-        curr = img
-    pyr = []
-    for _ in range(plan.n_octaves):
-        levels = [curr]
+        taps0 = np.ones(1, np.float32)      # the image itself: 1.0 * x == x
+    steps = [BlurStep(None, (0, 0), taps0)]
+    for o in range(plan.n_octaves):
         cs = plan.init_sigma
         for i in range(1, plan.levels_per_octave):
             sigma = cs * math.sqrt(step * step - 1.0)
-            levels.append(gaussian_blur(levels[-1], sigma, py2=py2,
-                                        use_kernel=use_kernel))
+            down = ((o + 1, 0) if i == plan.n_levels
+                    and o + 1 < plan.n_octaves else None)
+            steps.append(BlurStep((o, i - 1), (o, i),
+                                  gauss_kernel_1d(sigma, py2=py2), down,
+                                  zero_src_pad=i == 1))
             cs *= step
-            if i == plan.n_levels:
-                next_first = downsample2(levels[-1])
-        pyr.append(torch.stack(levels))
-        curr = next_first
-    return pyr
+    return steps
 
 
 def build_flat_pyramid(img: Tensor, plan: PyramidPlan, py2: bool = False,
                        use_kernel: bool = True):
-    """The pyramid and a row-padded (sum of heights, max width) buffer that
-    holds every level, zeros right of narrower levels.  Returns
-    (pyr, buf2d)."""
-    pyr = build_pyramid(img, plan, py2=py2, use_kernel=use_kernel)
+    """The pyramid, written level by level into a row-padded (sum of
+    heights, max width) buffer, zeros right of narrower levels.  Returns
+    (pyr, buf): ``pyr[o]`` is octave o's ``(levels_per_octave, h, w)`` view
+    of ``buf``.  One B1 launch per level (:func:`pyramid_steps`,
+    :func:`.cuda_blur.blur_level`) writes the level into its rows and zeroes
+    its padding.  ``use_kernel=False`` runs the plain versions on any
+    device."""
     rows, wmax = plan.padded_buffer_shape()
-    buf = torch.zeros((rows, wmax), dtype=img.dtype, device=img.device)
-    r0 = 0
-    for octave in pyr:
-        _, h, w = octave.shape
-        for lvl in octave:
-            buf[r0:r0 + h, :w] = lvl
-            r0 += h
+    buf = torch.empty((rows, wmax), dtype=img.dtype, device=img.device)
+    pyr = pyramid_views(buf, plan)
+
+    def level(ol):
+        return None if ol is None else pyr[ol[0]][ol[1]]
+
+    for st in pyramid_steps(plan, py2=py2):
+        blur_level(img if st.src is None else level(st.src), level(st.dst),
+                   st.taps, pad_to=wmax, down=level(st.down),
+                   zero_src_pad=st.zero_src_pad, use_kernel=use_kernel)
     return pyr, buf

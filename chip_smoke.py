@@ -14,7 +14,19 @@ Phases, each timed and each fatal on failure:
   2. kernels — every kernel of the extraction path against its plain PyTorch
                version on the card, at the shapes the 1080p main path gives
                it, and timed beside the plain version, a PyTorch library call
-               where one computes the same function, and its bound.
+               where one computes the same function, and its bound: B1 at
+               the initial blur and at each of the 29 launches of one
+               image's pyramid (the level buffer bit-identical to the plain
+               writer's; per-launch times and their sum per image, beside
+               29 nn.Conv2d), B2's stencil at each of the 7 octaves (its
+               responses and dedup counters bit-identical; the bound of the
+               old kernel's 12 full maps beside the new one), its dedup and
+               its refine at the flagship's top-k indices (bit-identical).
+     stage   — the pyramid and detection stage as a whole in float32, fast
+               mode and the HesAffNet program's threshold mode: device
+               activities and device ms per image of _responses and
+               _multiscale_detect, from the profiler (also in the JSON
+               line, under "stage").
   3. main    — HesAffNet + HardTFeat extraction (2000 features, 1080x1920,
                pretrained AffNetFast + HardTFeatNet) through the public
                extractor on seeded images; every kernel must have launched;
@@ -139,13 +151,15 @@ from affnet_tpu_torch.ops.nms import M_CAND, ROW_S
 from affnet_tpu_torch.ops.patches import (base_lin, batched_tables,
                                           extract_patches_batched,
                                           extract_patches_from_flat_pyramid)
-from affnet_tpu_torch.ops.scalespace import build_pyramid, gauss_kernel_1d
+from affnet_tpu_torch.ops.scalespace import (build_flat_pyramid,
+                                             gauss_kernel_1d, pyramid_steps)
 from affnet_tpu_torch.shape_opt import LAFShapeOptimizer
 from affnet_tpu_torch.train import (TrainConfig, draw_affnet_lafs,
                                     init_state, make_affnet_train_step,
                                     make_descriptor, tilt_for_epoch,
                                     train_loop)
 from affnet_tpu_torch.utils import float32_math
+from scripts.profile_detect_stage import stage_profile
 
 H, W = 1080, 1920
 NFEATS = 2000
@@ -257,8 +271,7 @@ def check_blur(img: torch.Tensor) -> dict:
     got = cuda_blur.blur_cuda(img, taps)
     ref = cuda_blur.blur_plain(img, taps)
     err = float((got - ref).abs().max())
-    # atol 1e-5 on [0, 1] data, scaled to this image's range.
-    require(err <= 1e-5 * float(ref.abs().max()), f"blur: max err {err}")
+    require(torch.equal(got, ref), f"blur: not bit-identical, max err {err}")
     k = len(taps)
     pad = k // 2
     conv = torch.nn.Conv2d(1, 1, k, padding=pad, padding_mode="replicate",
@@ -276,32 +289,196 @@ def check_blur(img: torch.Tensor) -> dict:
         bound_ms=t_bytes, bound_by=by)
 
 
-def check_detect(levels: torch.Tensor, sigmas) -> dict:
-    got = cuda_detect.detect_octave_cuda(levels, sigmas, 0.0)
-    ref = cuda_detect.detect_octave_plain(levels, sigmas, 0.0)
-    require(torch.equal(got[:, 0] > 0, ref[:, 0] > 0),
-            "detect: NMS survivor sets differ")
-    err_maps = float((got[:, 1:] - ref[:, 1:]).abs().max())
-    err_resp = float((got[:, 0] - ref[:, 0]).abs().max())
-    require(err_maps <= 1e-5, f"detect: sigma/y/x max err {err_maps}")
-    require(err_resp <= 1e-5 * float(ref[:, 0].abs().max()),
-            f"detect: response max err {err_resp}")
-    n_px = levels.shape[1] * levels.shape[2]
-    n_lv = levels.shape[0]
-    # per pixel: 14 flops per level response; per center level 27 maxes,
-    # 3 NMS flops and ~140 soft-argmax flops.
-    flops = n_px * (14 * n_lv + (n_lv - 2) * 170)
-    t_bytes, by = bound_ms(n_px * 4 * (n_lv + 4 * (n_lv - 2)), flops)
+def kernel_times(fn, name: str, n: int, reps: int = 10) -> list:
+    """Device ms of each of the ``n`` launches of kernel ``name`` that one
+    ``fn()`` call makes, in launch order: their CUPTI intervals over
+    ``reps`` warmed calls, averaged position by position."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and name in e.name)
+    require(len(spans) == n * reps, f"{name}: {len(spans)} launches under "
+            f"the profiler, expected {n} x {reps}")
+    us = np.array([b - a for a, b in spans], np.float64).reshape(reps, n)
+    return [float(x) for x in us.mean(axis=0) / 1e3]
+
+
+def check_blur_image(img: torch.Tensor, plan) -> dict:
+    """Every B1 launch of one image's pyramid (the initial blur, then each
+    level from the one before, writing the level buffer, its padding and
+    the next octave's first level): the buffer bit-identical to the plain
+    writer's, so each launch equals its plain version on the same input;
+    per-launch device ms beside its bound, and the sums per image."""
+    steps = pyramid_steps(plan)
+    _, buf = build_flat_pyramid(img, plan)
+    pyr_ref, ref = build_flat_pyramid(img, plan, use_kernel=False)
+    require(torch.equal(buf, ref), "blur: the pyramid buffer differs from "
+            "the plain writer's")
+    wmax = buf.shape[1]
+    per = kernel_times(lambda: build_flat_pyramid(img, plan), "blur_",
+                       len(steps))
+    bounds, convs, inputs = [], [], []
+    for st, ms in zip(steps, per):
+        h, w = plan.octave_shapes[st.dst[0]]
+        n = len(st.taps)
+        written = h * wmax + (st.down is not None) * ((h + 1) // 2) * (
+            (w + 1) // 2) + st.zero_src_pad * h * (wmax - w)
+        t, by = bound_ms(4 * (h * w + written), 4 * n * h * w)
+        bounds.append((t, by))
+        src = img if st.src is None else pyr_ref[st.src[0]][st.src[1]]
+        inputs.append(src.contiguous()[None, None])
+        conv = torch.nn.Conv2d(1, 1, n, padding=n // 2, bias=False,
+                               padding_mode="replicate").to(img.device)
+        with torch.no_grad():
+            conv.weight.copy_(torch.from_numpy(
+                np.outer(st.taps, st.taps))[None, None])
+        convs.append(conv)
+        log(f"  blur launch {st.src}->{st.dst} {h}x{w} {n} taps"
+            f"{' +down' if st.down else ''}: ms {ms:.4f} bound_ms {t:.5f} "
+            f"({by})")
+
+    def library():
+        for conv, x in zip(convs, inputs):
+            conv(x)
+
+    t_bound = sum(t for t, _ in bounds)
+    by = "bytes" if all(b == "bytes" for _, b in bounds) else "operations"
     return dict(
-        name="detect", err=max(err_maps, err_resp),
-        shape=tuple(levels.shape),
-        ms=time_ms(lambda: cuda_detect.detect_octave_cuda(levels, sigmas,
-                                                          0.0), 20),
-        event_ms=event_median_ms(lambda: cuda_detect.detect_octave_cuda(
-            levels, sigmas, 0.0), 20),
-        plain_ms=time_ms(lambda: cuda_detect.detect_octave_plain(
-            levels, sigmas, 0.0), 5),
-        library_ms=None, bound_ms=t_bytes, bound_by=by)
+        name="blur_image", err=0.0, shape=(len(steps),), ms=sum(per),
+        event_ms=event_median_ms(lambda: build_flat_pyramid(img, plan), 10),
+        plain_ms=time_ms(lambda: build_flat_pyramid(img, plan,
+                                                    use_kernel=False), 3),
+        library_ms=time_ms(library, 3), bound_ms=t_bound, bound_by=by,
+        per_launch=per)
+
+
+def check_detect(det, img: torch.Tensor) -> dict:
+    """B2's stencil at every octave of one image (into the response vector,
+    the counters zeroed once), its dedup and its refine at the flagship's
+    top-k indices: each bit-identical to its plain version; the stencil's
+    device ms per octave and per image beside its bound, and beside the
+    bound of the old kernel's full maps (12 an octave)."""
+    p = det._plan(H, W)
+    plan = p.plan
+    th, border = det.cfg.effective_th, int(det.cfg.mr_size)
+    L = plan.levels_per_octave
+    pyr, buf = build_flat_pyramid(img, plan)
+    resp = torch.empty(p.total, device=img.device)
+    counters = torch.zeros((plan.n_octaves, cuda_detect.n_counters(L)),
+                           dtype=torch.int32, device=img.device)
+
+    def view(r, o):
+        off, hw = p.octaves[o]
+        h, w = plan.octave_shapes[o]
+        return r[off:off + (L - 2) * hw].view(L - 2, h, w)
+
+    def stencils():
+        counters.zero_()
+        for o in range(plan.n_octaves):
+            cuda_detect.stencil_cuda(pyr[o], plan.sigmas[o], th, border,
+                                     view(resp, o), counters[o])
+
+    stencils()
+    ref = torch.empty_like(resp)
+    ref_cnt = torch.empty_like(counters)
+    for o in range(plan.n_octaves):
+        r, c = cuda_detect.stencil_plain(pyr[o], plan.sigmas[o], th, border)
+        view(ref, o).copy_(r)
+        ref_cnt[o] = c
+    require(torch.equal(resp, ref) and torch.equal(counters, ref_cnt),
+            "detect: stencil responses or counters not bit-identical")
+    per = kernel_times(stencils, "detect_stencil", plan.n_octaves)
+    res = {}
+    bounds, old_bounds = [], []
+    for o, ms in enumerate(per):
+        h, w = plan.octave_shapes[o]
+        n_px = h * w
+        # per pixel: 14 flops per level response; per center level 27
+        # maxes and 3 NMS flops.
+        flops = n_px * (14 * L + 30 * (L - 2))
+        bounds.append(bound_ms(4 * n_px * (2 * L - 2), flops))
+        # The old kernel: 4 maps a center level, ~140 soft-argmax flops.
+        old_bounds.append(bound_ms(4 * n_px * (L + 4 * (L - 2)),
+                                   flops + n_px * (L - 2) * 140)[0])
+        log(f"  detect stencil octave {o} {L}x{h}x{w}: ms {ms:.4f} bound_ms "
+            f"{bounds[-1][0]:.5f} ({bounds[-1][1]}); old full-map bound "
+            f"{old_bounds[-1]:.5f}")
+    lv0 = pyr[0]
+    res["detect"] = dict(
+        name="detect", err=0.0, shape=tuple(lv0.shape), ms=per[0],
+        event_ms=event_median_ms(lambda: cuda_detect.stencil_cuda(
+            lv0, plan.sigmas[0], th, border, view(resp, 0), counters[0]), 20),
+        plain_ms=time_ms(lambda: cuda_detect.stencil_plain(
+            lv0, plan.sigmas[0], th, border), 5),
+        library_ms=None, bound_ms=bounds[0][0], bound_by=bounds[0][1],
+        old_bound_ms=old_bounds[0])
+    res["detect_image"] = dict(
+        name="detect_image", err=0.0, shape=(plan.n_octaves,), ms=sum(per),
+        event_ms=event_median_ms(stencils, 10),
+        plain_ms=time_ms(lambda: [cuda_detect.stencil_plain(
+            pyr[o], plan.sigmas[o], th, border)
+            for o in range(plan.n_octaves)], 3),
+        library_ms=None, bound_ms=sum(b for b, _ in bounds),
+        bound_by="bytes" if all(b == "bytes" for _, b in bounds)
+        else "operations", old_bound_ms=sum(old_bounds), per_launch=per)
+
+    before = resp.clone()
+    got = resp.clone()
+    cuda_detect.dedup_cuda(got, counters, p.octaves)
+    cuda_detect.dedup_plain(ref, counters, p.octaves)
+    require(torch.equal(got, ref), "dedup: not bit-identical")
+    changed = int((got != before).sum())
+    t, by = bound_ms(4 * (resp.numel() + changed + counters.numel()),
+                     4 * resp.numel())
+    res["dedup"] = dict(
+        name="dedup", err=0.0, shape=(resp.numel(),),
+        ms=time_ms(lambda: cuda_detect.dedup_cuda(got, counters, p.octaves),
+                   20),
+        event_ms=event_median_ms(lambda: cuda_detect.dedup_cuda(
+            got, counters, p.octaves), 20),
+        plain_ms=time_ms(lambda: cuda_detect.dedup_plain(
+            got.clone(), counters, p.octaves), 5),
+        library_ms=None, bound_ms=t, bound_by=by, changed=changed)
+
+    idxs = det._multiscale_detect(img, p)["orig_idx"]
+    tables = p.refine_tables
+    syx = cuda_detect.refine_cuda(buf, idxs, tables, th)
+    syx_ref = cuda_detect.refine_plain(buf, idxs, tables, th)
+    require(torch.equal(syx, syx_ref), "refine: not bit-identical")
+    # Buffer elements this run's points read: 5x5 at three levels each.
+    d = torch.searchsorted(tables.det_offsets, idxs, right=True) - 1
+    lf = tables.ext_levels[d]
+    hh, ww = tables.heights[lf].long(), tables.widths[lf].long()
+    pix = idxs - tables.det_offsets[d]
+    y, x = pix // ww, pix % ww
+    off = torch.arange(-2, 3, device=img.device)
+    touched = []
+    for k in range(3):
+        rows = (tables.row_offsets[lf + k].long()[:, None]
+                + torch.minimum((y[:, None] + off).clamp(min=0),
+                                hh[:, None] - 1))
+        cols = torch.minimum((x[:, None] + off).clamp(min=0), ww[:, None] - 1)
+        touched.append((rows[:, :, None] * buf.shape[1]
+                        + cols[:, None, :]).reshape(-1))
+    n_touched = int(torch.unique(torch.cat(touched)).numel())
+    t, by = bound_ms(4 * n_touched + idxs.numel() * (8 + 12),
+                     idxs.numel() * (27 * 14 + 80))
+    res["refine"] = dict(
+        name="refine", err=0.0, shape=(idxs.numel(), 3),
+        ms=time_ms(lambda: cuda_detect.refine_cuda(buf, idxs, tables, th),
+                   20),
+        event_ms=event_median_ms(lambda: cuda_detect.refine_cuda(
+            buf, idxs, tables, th), 20),
+        plain_ms=time_ms(lambda: cuda_detect.refine_plain(
+            buf, idxs, tables, th), 5),
+        library_ms=None, bound_ms=t, bound_by=by)
+    return res
 
 
 def check_topk(resp_all: torch.Tensor, seed: int) -> dict:
@@ -437,11 +614,31 @@ def phase_kernels(det, img: torch.Tensor, seed: int) -> dict:
     res = {}
     res["blur"] = check_blur(img)
     p = det._plan(H, W)
-    res["detect"] = check_detect(build_pyramid(img, p.plan)[0],
-                                 p.plan.sigmas[0])
+    res["blur_image"] = check_blur_image(img, p.plan)
+    res.update(check_detect(det, img))
     res["topk"] = check_topk(det._responses(img, p)[1], seed)
     for site, r in check_patch_sites(det, img).items():
         res[f"patches_{site}"] = r
+    return res
+
+
+def phase_stage(dets: dict, img: torch.Tensor) -> dict:
+    """The pyramid and detection stage as a whole, per image: the device
+    activities (kernels, copies, memsets) of ``_responses`` (the pyramid
+    and detection) and of ``_multiscale_detect`` (and the selection and
+    (sigma, y, x)), and their device ms, from the profiler, for each
+    extractor of ``dets``."""
+    res = {}
+    for name, det in dets.items():
+        p = det._plan(*img.shape)
+        res[name] = {stage: stage_profile(functools.partial(
+            getattr(det, stage), img, p))
+            for stage in ("_responses", "_multiscale_detect")}
+        for stage, r in res[name].items():
+            log(f"stage {name} {stage}: {r['launches']:.0f} device "
+                f"activities per image ({r['kernels']:.0f} kernels, "
+                f"{r['copies']:.0f} copies, {r['memsets']:.0f} memsets), "
+                f"device ms {r['device_ms']:.4f}")
     return res
 
 
@@ -1500,7 +1697,7 @@ def phase_hesaffnet(imgs, device, smi) -> dict:
             f"B7 launches per pass {per_pass}, expected "
             f"{B7_PER_PROGRAM_PASS}")
     # Threshold mode keeps every survivor without a top-k: no B3.
-    for name in ("blur", "detect", "patches", "conv"):
+    for name in ("blur", "detect", "dedup", "refine", "patches", "conv"):
         require(counts[name] > 0, f"kernel {name} not launched on the "
                 "hesaffnet path")
     require(counts["conv_bf16"] == 0 and counts["patches_bf16"] == 0,
@@ -1655,6 +1852,17 @@ def run_phases(args) -> int:
     log(f"phase kernels wall_s: {time.perf_counter() - t:.3f}")
 
     t = time.perf_counter()
+    with torch.inference_mode():
+        stage = phase_stage({
+            "float32": det,
+            "fast": ScaleSpaceAffinePatchExtractor(
+                FAST_CONFIG, shape_net=aff, desc_net=desc, device=device),
+            "program": hesaffnet.make_extractor(
+                th=PROGRAM_TH, max_keypoints=PROGRAM_CAP, do_ori=True,
+                device=device)}, torch.from_numpy(imgs[0]).to(device))
+    log(f"phase stage wall_s: {time.perf_counter() - t:.3f}")
+
+    t = time.perf_counter()
     det_plain = ScaleSpaceAffinePatchExtractor(
         CONFIG, shape_net=aff, desc_net=desc, device=device,
         use_kernels=False)
@@ -1704,6 +1912,11 @@ def run_phases(args) -> int:
                     "affnet_tpu/ops/pallas_blur.py:60"),
            "detect": ("affnet_tpu_torch/csrc/detect.cu",
                       "affnet_tpu/ops/pallas_detect.py:84"),
+           "dedup": ("affnet_tpu_torch/csrc/detect.cu",
+                     "affnet_tpu/ops/pallas_detect.py:84 with "
+                     "affnet_tpu/detector.py:183-195"),
+           "refine": ("affnet_tpu_torch/csrc/detect.cu",
+                      "affnet_tpu/ops/pallas_detect.py:84"),
            "topk": ("affnet_tpu_torch/csrc/topk.cu",
                     "affnet_tpu/ops/pallas_topk.py:46"),
            "patches": ("affnet_tpu_torch/csrc/patches.cu",
@@ -1751,7 +1964,7 @@ def run_phases(args) -> int:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"]}
         for r, launches, source, replaces in rows]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "stage": stage}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

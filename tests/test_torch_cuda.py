@@ -25,7 +25,9 @@ from affnet_tpu_torch.utils import float32_math
 from affnet_tpu_torch.ops.patches import (extract_patches_batched,
                                           extract_patches_from_flat_pyramid)
 from affnet_tpu_torch.ops.pyramid_sampler import make_pyramid_sampler_diff
-from affnet_tpu_torch.ops.scalespace import gauss_kernel_1d
+from affnet_tpu_torch.ops import launch_counts
+from affnet_tpu_torch.ops.scalespace import (build_flat_pyramid,
+                                             gauss_kernel_1d, make_plan)
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -39,28 +41,156 @@ def dev():
     return torch.device("cuda")
 
 
+# Tap counts 1 (the identity), 9, 15, 71 (a radius beyond one shared-memory
+# chunk) and 201 (several chunks each way), on sizes that cross the 64x32
+# tiles and on images smaller than the radius.
+BLUR_TAPS = [np.array([1.0], np.float32)] + [
+    gauss_kernel_1d(s) for s in (0.8, 1.227, 1.52, 2.4, 3.0, 11.7, 33.4)]
+
+
 @pytest.mark.parametrize("hw", [(1, 1), (5, 6), (77, 160), (130, 257)])
 def test_blur_kernel(dev, hw):
     img = torch.rand(hw, device=dev) * 255
-    for sigma in (0.8, 1.52, 3.0):
-        taps = gauss_kernel_1d(sigma)
+    for taps in BLUR_TAPS:
         before = cuda_blur.launches
         got = cuda_blur.blur(img, taps)
         assert cuda_blur.launches == before + 1
-        torch.testing.assert_close(got, cuda_blur.blur_plain(img, taps),
-                                   rtol=0, atol=0)
+        assert torch.equal(got, cuda_blur.blur_plain(img, taps)), len(taps)
+    assert {len(t) for t in BLUR_TAPS} >= {1, 9, 15, 71, 201}
+
+
+@pytest.mark.parametrize("hw", [(37, 29), (130, 257)])
+def test_blur_level_kernel_writes(dev, hw):
+    """One B1 launch into a pitched buffer: the level, the zeroed padding of
+    both rows, and the stride-2 samples, against the plain version on a
+    buffer of stale values."""
+    h, w = hw
+    pitch = w + 70
+    bufs = [torch.full((3 * h, pitch), 7.0, device=dev) for _ in range(2)]
+    for buf in bufs:
+        buf[:h, :w] = torch.rand(hw, generator=torch.Generator().manual_seed(
+            0)).to(dev) * 255
+    taps = gauss_kernel_1d(1.52)
+    for buf, fn in zip(bufs, (cuda_blur.blur_level_cuda,
+                              cuda_blur.blur_level_plain)):
+        fn(buf[:h, :w], buf[h:2 * h, :w], taps, pad_to=pitch,
+           down=buf[2 * h:2 * h + (h + 1) // 2, :(w + 1) // 2],
+           zero_src_pad=True)
+    assert torch.equal(bufs[0], bufs[1])
+    assert torch.all(bufs[0][:2 * h, w:] == 0)
+
+
+@pytest.mark.parametrize("hw,n_levels,py2", [((96, 128), 3, False),
+                                             ((300, 517), 3, True),
+                                             ((300, 517), 6, False)])
+def test_pyramid_kernel(dev, hw, n_levels, py2):
+    """The row-padded buffer through B1 equals the plain writer's bit for
+    bit, with one launch per level."""
+    img = torch.rand(hw, device=dev) * 255
+    plan = make_plan(*hw, n_levels, 1.6, 5)
+    before = cuda_blur.launches
+    pyr, buf = build_flat_pyramid(img, plan, py2=py2)
+    assert cuda_blur.launches == before + 1 + plan.n_octaves * (n_levels + 1)
+    ref_pyr, ref = build_flat_pyramid(img, plan, py2=py2, use_kernel=False)
+    assert torch.equal(buf, ref)
+    assert all(torch.equal(a, b) for a, b in zip(pyr, ref_pyr))
 
 
 @pytest.mark.parametrize("hw", [(3, 4), (15, 20), (77, 160)])
-@pytest.mark.parametrize("n_levels", [3, 5, 7])
+@pytest.mark.parametrize("n_levels", [3, 5, 6, 7, 8])
 def test_detect_kernel(dev, hw, n_levels):
+    """The full maps of one octave through the stencil and the refine at
+    every pixel equal the plain full-map chain bit for bit."""
     levels = torch.rand((n_levels,) + hw, device=dev) * 50
     sigmas = [1.6 * 2 ** (i / 3) for i in range(n_levels)]
     for th in (0.0, 5.0):
         got = cuda_detect.detect_octave(levels, sigmas, th)
         ref = cuda_detect.detect_octave_plain(levels, sigmas, th)
         assert torch.equal(got[:, 0] > 0, ref[:, 0] > 0)
-        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+        assert torch.equal(got, ref)
+
+
+def _stage_inputs(dev, n_levels, hw=(300, 517), border=5):
+    img = torch.rand(hw, device=dev) * 255
+    plan = make_plan(*hw, n_levels, 1.6, border)
+    pyr, buf = build_flat_pyramid(img, plan)
+    return plan, pyr, buf
+
+
+@pytest.mark.parametrize("n_levels", [3, 6])
+@pytest.mark.parametrize("th", [0.0, 5.0])
+def test_detect_stage_kernels(dev, n_levels, th):
+    """B2's three launches against their plain versions on a pyramid in the
+    level buffer: the stencil's responses and counters, the dedup, and the
+    refine at every survivor and at random entries, bit for bit."""
+    plan, pyr, buf = _stage_inputs(dev, n_levels)
+    nc = n_levels
+    outs = []
+    for uk in (True, False):
+        chunks, counters = [], []
+        for o in range(plan.n_octaves):
+            h, w = plan.octave_shapes[o]
+            r = torch.empty((nc, h, w), device=dev)
+            c = torch.zeros(cuda_detect.n_counters(nc + 2), dtype=torch.int32,
+                            device=dev)
+            before = cuda_detect.launches
+            cuda_detect.detect_stencil(pyr[o], plan.sigmas[o], th, 5, r, c,
+                                       use_kernel=uk)
+            assert cuda_detect.launches == before + uk
+            chunks.append(r.reshape(-1))
+            counters.append(c)
+        outs.append((torch.cat(chunks), torch.stack(counters)))
+    (resp, cnt), (ref, ref_cnt) = outs
+    assert torch.equal(resp, ref) and torch.equal(cnt, ref_cnt)
+    assert int((resp > 0).sum()) > 100
+    octaves, off = [], 0
+    for h, w in plan.octave_shapes:
+        octaves.append((off, h * w))
+        off += nc * h * w
+    before = cuda_detect.launches_dedup
+    cuda_detect.dedup(resp, cnt, octaves)
+    assert cuda_detect.launches_dedup == before + 1
+    cuda_detect.dedup(ref, ref_cnt, octaves, use_kernel=False)
+    assert torch.equal(resp, ref)
+    det_offsets = [o + k * hw for o, hw in octaves for k in range(nc)]
+    ext = [plan.flat_index(o, k) for o in range(plan.n_octaves)
+           for k in range(nc)]
+    offs, hs, ws = plan.level_dims_padded()
+    tables = cuda_detect.RefineTables(
+        torch.tensor(det_offsets, device=dev), torch.tensor(ext, device=dev),
+        *(torch.tensor(a, device=dev) for a in (offs, hs, ws)),
+        *cuda_detect.RefineTables.level_tables(plan, dev))
+    g = torch.Generator().manual_seed(n_levels)
+    idxs = torch.cat([torch.nonzero(resp > 0)[:, 0],
+                      torch.randint(0, resp.numel(), (5000,),
+                                    generator=g).to(dev)])
+    before = cuda_detect.launches_refine
+    got = cuda_detect.refine(buf, idxs, tables, th)
+    assert cuda_detect.launches_refine == before + 1
+    assert torch.equal(got, cuda_detect.refine_plain(buf, idxs, tables, th))
+
+
+@pytest.mark.parametrize("n_levels", [3, 6])
+def test_extractor_detection_on_card(dev, n_levels):
+    """The extractor at n_levels 3 and 6: one B1 launch per level, one
+    stencil per octave, one dedup and one refine, and the same keypoints
+    and shapes as its plain path on the card."""
+    img = np.load(os.path.join(FIX, "detector_golden_fullres.npz"))["img"]
+    outs = []
+    for uk in (True, False):
+        det = ScaleSpaceAffinePatchExtractor(
+            DetectorConfig(num_features=500, border=5, mr_size=5.192,
+                           n_levels=n_levels), device=dev, use_kernels=uk)
+        before = launch_counts()
+        outs.append(det(img))
+        n_oct = det._plan(*img.shape).plan.n_octaves
+        got = {k: launch_counts()[k] - before[k]
+               for k in ("blur", "detect", "dedup", "refine")}
+        assert got == ({"blur": 1 + n_oct * (n_levels + 1), "detect": n_oct,
+                        "dedup": 1, "refine": 1} if uk else
+                       dict.fromkeys(got, 0)), got
+    for k in outs[1]:
+        np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
 
 
 def test_topk_kernel(dev):

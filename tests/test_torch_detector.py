@@ -24,7 +24,11 @@ from affnet_tpu_torch import load_pretrained
 from affnet_tpu_torch.detector import (DetectorConfig,
                                        ScaleSpaceAffinePatchExtractor)
 from affnet_tpu_torch.models import AffNetFast, HardTFeatNet, params_from_jax
+from affnet_tpu_torch.laf import sc_y_x_to_lafs
 from affnet_tpu_torch.ops import launch_counts
+from affnet_tpu_torch.ops.nms import masked_topk
+from affnet_tpu_torch.ops.scalespace import build_flat_pyramid
+from test_torch_detect import old_detection_chain
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 BENCH = dict(border=5, mr_size=5.192, num_baum_iters=1, patch_size=32)
@@ -117,6 +121,53 @@ def test_matches_reference_goldens():
     out = det(g["img"])
     assert len(out["resp"]) == len(g["aff_resp"])
     np.testing.assert_allclose(out["lafs"], g["aff_lafs"], atol=1e-2)
+
+
+def _old_multiscale_detect(det, img):
+    """``_multiscale_detect`` as it was before the detection stage was split:
+    the full maps of every octave, the border mask and octave map per
+    center level, the concatenated vectors, the selection, and (sigma, y,
+    x) gathered from the full maps."""
+    cfg = det.cfg
+    p = det._plan(*img.shape)
+    plan = p.plan
+    pyr, flat = build_flat_pyramid(img, plan, py2=cfg.py2)
+    chunks = [[] for _ in range(4)]
+    for o in range(plan.n_octaves):
+        resp, syx = old_detection_chain(pyr[o].contiguous(), plan.sigmas[o],
+                                        cfg.effective_th, int(cfg.mr_size))
+        for acc, m in zip(chunks, (resp, syx[:, 0], syx[:, 1], syx[:, 2])):
+            acc.append(m.reshape(-1))
+    resp_all, sc_all, y_all, x_all = (torch.cat(c) for c in chunks)
+    survivor = resp_all > 0
+    if cfg.threshold_mode:
+        idxs = torch.nonzero(survivor)[:, 0]
+        vals, valid = resp_all[idxs], survivor[idxs]
+    else:
+        vals, idxs, valid = masked_topk(
+            resp_all, min(cfg.prefilter_count(), p.total))
+    syx = torch.stack([sc_all[idxs], y_all[idxs], x_all[idxs]], -1)
+    return {"flat": flat, "resp": vals, "lafs": sc_y_x_to_lafs(syx),
+            "valid": valid, "orig_idx": idxs,
+            "n_detected": survivor.sum()}
+
+
+@pytest.mark.parametrize("fixture", ["detector_golden.npz",
+                                     "detector_golden_fullres.npz"])
+@pytest.mark.parametrize("th", [None, -1.0])
+def test_detection_stage_unchanged_on_fixtures(fixture, th):
+    """The level buffer, responses, selected indices and LAFs from the
+    stencil, dedup and refine equal the full-map chain's bit for bit, in
+    top-k mode and in the HesAffNet program's threshold mode."""
+    img = torch.from_numpy(np.load(os.path.join(FIX, fixture))["img"])
+    det = ScaleSpaceAffinePatchExtractor(
+        DetectorConfig(num_features=500, th=th,
+                       **{**BENCH, "num_baum_iters": 0}), device="cpu")
+    got = det._multiscale_detect(img, det._plan(*img.shape))
+    ref = _old_multiscale_detect(det, img)
+    assert int(ref["n_detected"]) > 200
+    for k, v in ref.items():
+        assert torch.equal(got[k], v), k
 
 
 def test_cpu_run_launches_no_kernel(small):

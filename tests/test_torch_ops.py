@@ -47,6 +47,22 @@ def test_flat_pyramid_matches_jax():
     np.testing.assert_allclose(tbuf.numpy(), np.asarray(jbuf), atol=1e-5)
 
 
+@pytest.mark.parametrize("hw,n_levels,py2", [((96, 128), 6, False),
+                                             ((77, 160), 3, True),
+                                             ((37, 29), 4, False)])
+def test_flat_pyramid_writer_matches_jax(hw, n_levels, py2):
+    """The level buffer written in place (one blur launch a level) against
+    JAX's build_flat_pyramid at other level counts and the py2 taps."""
+    img = np.random.RandomState(1).rand(*hw).astype(np.float32)
+    plan = jss.make_plan(*hw, n_levels, 1.6, 3)
+    _, jbuf = jss.build_flat_pyramid(jnp.asarray(img), plan, py2=py2)
+    _, tbuf = tss.build_flat_pyramid(torch.from_numpy(img),
+                                     tss.make_plan(*hw, n_levels, 1.6, 3),
+                                     py2=py2)
+    assert tuple(tbuf.shape) == jbuf.shape
+    np.testing.assert_allclose(tbuf.numpy(), np.asarray(jbuf), atol=1e-5)
+
+
 def test_downsample_is_stride_two():
     x = torch.arange(7 * 9, dtype=torch.float32).reshape(7, 9)
     np.testing.assert_array_equal(tss.downsample2(x).numpy(),

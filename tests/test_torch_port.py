@@ -72,9 +72,9 @@ def test_one_nvcc_call_into_hashed_build_dir():
     assert cmd[cmd.index("-o") + 1] == out
     assert cmd[-len(objs):] == objs
     assert set(build.SIGNATURES) == {
-        "launch_blur", "launch_detect_octave", "launch_row_topm",
-        "launch_sample_patches", "launch_sample_patches_bwd",
-        "launch_conv_flat"}
+        "launch_blur", "launch_detect_stencil", "launch_detect_dedup",
+        "launch_detect_refine", "launch_row_topm", "launch_sample_patches",
+        "launch_sample_patches_bwd", "launch_conv_flat"}
 
 
 def test_missing_nvcc_raises(monkeypatch):
