@@ -19,9 +19,9 @@ waits for the data-parallel runner, and the program refuses it.
 The nets' eval layout follows ``AFFNET_EVAL_CONV``: "nchw" (default, cuDNN)
 or "flat" (kernel B7); ``models.cnn.eval_layout`` sets it for a block.
 
-Size limits of the kernels, none of which a flag here reaches: B2 takes 3
-to 7 levels per octave (this program uses 3), B4 patches up to 64 pixels
-wide (it uses 32), B1 at most 63 taps (sigma up to about 10).  B7 takes
+Size limits of the kernels, none of which a flag here reaches: B2 takes up
+to 20 levels per octave (this program uses 3), B4 any patch size of 2 or
+more (it uses 32), B1 any odd tap count.  B7 takes
 kernels up to 32 rows and maps up to 1024 pixels wide; the flat stack runs
 a layer outside its own rules (output channels not a multiple of 8, a
 kernel as large as the map, a map with an odd pixel count) through the

@@ -19,7 +19,7 @@ Usage:
       [img1 img2 H] [--descriptor TFeat] [--loss HardNegC] \\
       [--steps 100] [--lr 2.0] [--out runs/shape_opt] [--device cuda]
 
-Sizes: the patch size is 32 (the sampler kernels take PS <= 64) and the
+Sizes: the patch size is 32 (the sampler kernels take any PS >= 2) and the
 pyramid has one level per octave; ``--nfeats`` is any count the detector's
 top-k takes.  Reading images needs PIL, the animation matplotlib.
 """

@@ -34,13 +34,8 @@
 
 namespace {
 
-constexpr int kMaxPs = 64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-struct BaseGrid {
-  float lin[kMaxPs];
-};
 
 __device__ __forceinline__ bool in_level(long long xc, long long yc, int h,
                                          int w) {
@@ -53,7 +48,8 @@ __global__ void sample_patches_bwd(const float* __restrict__ buf, int pitch,
                                    const int* __restrict__ row_offsets,
                                    const int* __restrict__ heights,
                                    const int* __restrict__ widths,
-                                   int n_levels, BaseGrid grid,
+                                   int n_levels,
+                                   const float* __restrict__ lin,
                                    const float* __restrict__ g,
                                    float* __restrict__ grad_buf,
                                    float* __restrict__ grad_lafs, int ps,
@@ -70,8 +66,8 @@ __global__ void sample_patches_bwd(const float* __restrict__ buf, int pitch,
   const float* gp = g + static_cast<size_t>(p) * ps * ps;
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int s = threadIdx.x; s < ps * ps; s += blockDim.x) {
-    const float gx = grid.lin[s % ps];
-    const float gy = grid.lin[s / ps];
+    const float gx = __ldg(lin + s % ps);
+    const float gy = __ldg(lin + s / ps);
     // The forward's coordinate arithmetic (csrc/patches.cu), op for op.
     const float xs = __fadd_rn(
         __fmul_rn(m, __fadd_rn(__fmul_rn(a00, gx), __fmul_rn(a01, gy))),
@@ -148,24 +144,24 @@ __global__ void sample_patches_bwd(const float* __restrict__ buf, int pitch,
 }  // namespace
 
 // buf: float32 (buf_rows, pitch); lafs: float32 (n, 2, 3); level: int32
-// (n,); row_offsets/heights/widths: int32 (n_levels,); lin_host: host array
-// of ps base-grid coordinates; g: float32 (n, ps, ps) upstream gradient;
+// (n,); row_offsets/heights/widths: int32 (n_levels,); lin: float32 (ps,)
+// base-grid coordinates on the device; g: float32 (n, ps, ps) upstream
+// gradient;
 // grad_buf: float32 (buf_rows, pitch), zeroed by the caller, or null to
 // skip the buffer cotangent; grad_lafs: float32 (n, 2, 3), or null to skip
 // the LAF cotangent.  All device arrays contiguous.
 extern "C" int launch_sample_patches_bwd(
     const float* buf, int buf_rows, int pitch, const float* lafs,
     const int* level, const int* row_offsets, const int* heights,
-    const int* widths, int n_levels, const float* lin_host, const float* g,
+    const int* widths, int n_levels, const float* lin, const float* g,
     float* grad_buf, float* grad_lafs, int n, int ps, int align_corners,
     void* stream) {
   if (buf_rows <= 0 || pitch <= 0 || n <= 0 || n_levels <= 0 || ps < 2 ||
-      ps > kMaxPs || (grad_buf == nullptr && grad_lafs == nullptr))
+      static_cast<long long>(ps) * ps >= (1LL << 31) ||
+      (grad_buf == nullptr && grad_lafs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  BaseGrid grid;
-  for (int i = 0; i < ps; ++i) grid.lin[i] = lin_host[i];
   sample_patches_bwd<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      buf, pitch, lafs, level, row_offsets, heights, widths, n_levels, grid,
+      buf, pitch, lafs, level, row_offsets, heights, widths, n_levels, lin,
       g, grad_buf, grad_lafs, ps, align_corners);
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,16 +51,16 @@ SIGNATURES = {
     # widths, sigma, sigma^4, th, out (n, 3), stream
     "launch_detect_refine": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                              _F, _P, _P],
-    # x (rows, s), vals (rows, m), cols (rows, m), leftover (rows,), rows,
-    # s, m, stream
-    "launch_row_topm": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x (n,), n, vals (rows, m), cols (rows, m), leftover (rows,), rows,
+    # m, stream
+    "launch_row_topm": [_P, _I, _P, _P, _P, _I, _I, _P],
     # buf, buf_rows, pitch, lafs (n, 2, 3), level (n,), row_off, heights,
-    # widths, n_levels, lin (host, ps), out (n, ps, ps), n, ps,
+    # widths, n_levels, lin (device, ps), out (n, ps, ps), n, ps,
     # align_corners, bf16, stream
     "launch_sample_patches": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
                               _I, _I, _I, _I, _P],
     # buf, buf_rows, pitch, lafs, level, row_off, heights, widths, n_levels,
-    # lin (host, ps), g (n, ps, ps), grad_buf (or null), grad_lafs (or
+    # lin (device, ps), g (n, ps, ps), grad_buf (or null), grad_lafs (or
     # null), n, ps, align_corners, stream
     "launch_sample_patches_bwd": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                                   _P, _P, _P, _I, _I, _I, _P],

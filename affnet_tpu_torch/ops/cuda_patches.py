@@ -9,10 +9,12 @@ extraction path.  CUDA source: ``csrc/patches.cu``.  Its bf16 mode
 The TPU kernel fetches a static window per patch and turns bilinear
 sampling into tent-weight matmuls, with an exact fallback for patches that
 overflow their window.  Here the function is ported, not the mechanism: a
-direct gather, one thread per output sample, one block per patch, with the
-plain sampler's arithmetic (:func:`.patches.extract_patches_from_flat_pyramid`)
-in the same order.  There is no static window, so nothing can overflow and
-``n_overflow`` is always 0.
+direct gather by persistent blocks, templated on the patch size (32 and 64;
+a generic instance for any other size >= 2), with the plain sampler's
+arithmetic (:func:`.patches.extract_patches_from_flat_pyramid`) in the same
+order, bit for bit.  There is no static window, so nothing can overflow and
+``n_overflow`` is always 0.  The base grid goes to the kernels as a device
+array (:func:`lin_device`), so the patch size has no upper limit.
 
 B5 is the same ``_sampler_kernel`` reached through the training warps'
 custom VJP (``_batched_sample_diff``): its forward is B4's kernel on
@@ -43,12 +45,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..kernels.build import check_tensor, host_floats, launch, stream_of
+from ..kernels.build import check_tensor, launch, stream_of
 from .patches import base_lin, extract_patches_from_flat_pyramid
 
 Tensor = torch.Tensor
-
-MAX_PS = 64        # csrc/patches.cu, csrc/patches_bwd.cu
 
 launches = 0
 launches_bf16 = 0
@@ -57,6 +57,17 @@ launches_batched_ps: Dict[int, int] = {}
 launches_bwd = 0
 launches_pyramid = 0
 launches_pyramid_bwd = 0
+
+_LIN: Dict[Tuple[int, bool, torch.device], Tensor] = {}
+
+
+def lin_device(ps: int, align_corners: bool, device) -> Tensor:
+    """The base grid (:func:`.patches.base_lin`) as a float32 tensor on
+    ``device``, made once per (ps, align_corners, device)."""
+    key = (ps, align_corners, torch.device(device))
+    if key not in _LIN:
+        _LIN[key] = torch.from_numpy(base_lin(ps, align_corners)).to(device)
+    return _LIN[key]
 
 
 def _check_sampler_args(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
@@ -74,8 +85,8 @@ def _check_sampler_args(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
         raise ValueError("patches: need (N, 2, 3) LAFs and N level indices")
     if row_offsets.shape[0] != n_levels or widths.shape[0] != n_levels:
         raise ValueError("patches: level tables differ in length")
-    if not 2 <= ps <= MAX_PS:
-        raise ValueError(f"patches: need 2 <= ps <= {MAX_PS}, got {ps}")
+    if ps < 2:
+        raise ValueError(f"patches: need ps >= 2, got {ps}")
 
 
 def _sample(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
@@ -85,6 +96,9 @@ def _sample(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
     returns the (N, PS, PS) float32 patches."""
     _check_sampler_args(buf2d, lafs, level_idx, row_offsets, heights, widths,
                         ps)
+    if buf2d.numel() >= 1 << 31:
+        raise ValueError("patches: the buffer must hold fewer than 2^31 "
+                         "elements (32-bit indexing)")
     n = lafs.shape[0]
     out = torch.empty((n, ps, ps), dtype=torch.float32, device=lafs.device)
     if n == 0:
@@ -92,7 +106,8 @@ def _sample(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
     launch("launch_sample_patches", buf2d.data_ptr(), buf2d.shape[0],
            buf2d.shape[1], lafs.data_ptr(), level_idx.data_ptr(),
            row_offsets.data_ptr(), heights.data_ptr(), widths.data_ptr(),
-           heights.shape[0], host_floats(base_lin(ps, align_corners)),
+           heights.shape[0],
+           lin_device(ps, align_corners, lafs.device).data_ptr(),
            out.data_ptr(), n, ps, int(align_corners), int(bf16),
            stream_of(lafs))
     return out
@@ -164,7 +179,8 @@ def _sample_bwd(buf2d: Tensor, lafs: Tensor, tables: tuple, g: Tensor,
     launch("launch_sample_patches_bwd", buf2d.data_ptr(), buf2d.shape[0],
            buf2d.shape[1], lafs.data_ptr(), level_idx.data_ptr(),
            row_offsets.data_ptr(), heights.data_ptr(), widths.data_ptr(),
-           heights.shape[0], host_floats(base_lin(ps, align_corners)),
+           heights.shape[0],
+           lin_device(ps, align_corners, lafs.device).data_ptr(),
            g.data_ptr(), grad_buf.data_ptr() if need_buf else None,
            grad_lafs.data_ptr() if need_lafs else None, n, ps,
            int(align_corners), stream_of(lafs))

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .cuda_topk import row_topm
+from .cuda_topk import row_topm_flat
 
 Tensor = torch.Tensor
 
@@ -135,14 +135,15 @@ def sorted_topk(values: Tensor, k: int) -> Tuple[Tensor, Tensor]:
 def two_stage_topk(values: Tensor, k: int,
                    use_kernel: bool = True) -> Tuple[Tensor, Tensor]:
     """Exact top-k of a large flat vector: per-row top-M_CAND candidates
-    (kernel B3), a stable sort of the candidates in (row, extraction) order,
-    and an exactness check that falls back to the full sort when a row's
-    leftover could reach the k-th value.  Equal to :func:`sorted_topk` on
-    every positive entry."""
+    (kernel B3, reading the vector as rows of ROW_S with -1 past its end,
+    so no padded copy is made), a stable sort of the candidates in (row,
+    extraction) order, and an exactness check that falls back to the full
+    sort when a row's leftover could reach the k-th value.  Equal to
+    :func:`sorted_topk` on every positive entry.  The check reads one bool
+    on the host (the JAX package branches on the device with lax.cond)."""
     n = values.numel()
-    b = -(-n // ROW_S)
-    x2d = F.pad(values, (0, b * ROW_S - n), value=-1.0).reshape(b, ROW_S)
-    rv, rc, leftover = row_topm(x2d, M_CAND, use_kernel=use_kernel)
+    rv, rc, leftover = row_topm_flat(values, M_CAND, use_kernel=use_kernel)
+    b = rv.shape[0]
     row0 = torch.arange(b, device=values.device)[:, None] * ROW_S
     flat_idx = torch.clamp(row0 + rc.long(), max=n - 1)
     top_v, pos = sorted_topk(rv.reshape(-1), k)

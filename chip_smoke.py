@@ -21,7 +21,12 @@ Phases, each timed and each fatal on failure:
                29 nn.Conv2d), B2's stencil at each of the 7 octaves (its
                responses and dedup counters bit-identical; the bound of the
                old kernel's 12 full maps beside the new one), its dedup and
-               its refine at the flagship's top-k indices (bit-identical).
+               its refine at the flagship's top-k indices (bit-identical);
+               B3 on the flat response vector (no padded copy) with planted
+               ties, bit-identical, beside torch.topk, and the flagship's
+               top-k as a whole under the profiler: no pad call, its device
+               activities; B4 at the shape and desc sites, bit-identical
+               (torch.equal), beside F.grid_sample.
      stage   — the pyramid and detection stage as a whole in float32, fast
                mode and the HesAffNet program's threshold mode: device
                activities and device ms per image of _responses and
@@ -81,9 +86,11 @@ Phases, each timed and each fatal on failure:
  11. hesaffnet — the HesAffNet program at its command-line defaults (th=-1
                threshold mode, --do-ori: AffNetFast and OriNetFast32 over
                every NMS survivor) with the flat layout on the images of
-               phase 3: each of the 12 B7 calls of a pass held against the
-               plain version at the program's shapes (about 34k patches)
-               and timed as in phase 10; 12 B7 launches per pass over an
+               phase 3: B4 at the program's shape and ori sites (about 34k
+               patches each) bit-identical to its plain version and timed
+               beside F.grid_sample; each of the 12 B7 calls of a pass held
+               against the plain version at the program's shapes and timed
+               as in phase 10; 12 B7 launches per pass over an
                image, finite ellipses written and read back, keypoints
                against the same program through the plain versions on the
                card (LAFs within the detector tests' tolerance) and against
@@ -147,7 +154,7 @@ from affnet_tpu_torch.ops import (EXTRACTION_KERNELS, FAST_EXTRACTION_KERNELS,
                                   cuda_patches, cuda_topk, launch_counts,
                                   reset_launch_counts)
 from affnet_tpu_torch.ops.conv_flat import conv_layer_plain, out_extent
-from affnet_tpu_torch.ops.nms import M_CAND, ROW_S
+from affnet_tpu_torch.ops.nms import M_CAND, ROW_S, masked_topk
 from affnet_tpu_torch.ops.patches import (base_lin, batched_tables,
                                           extract_patches_batched,
                                           extract_patches_from_flat_pyramid)
@@ -481,34 +488,64 @@ def check_detect(det, img: torch.Tensor) -> dict:
     return res
 
 
-def check_topk(resp_all: torch.Tensor, seed: int) -> dict:
+def topk_pads(resp_all: torch.Tensor, k: int) -> dict:
+    """The flagship's top-k (``masked_topk`` on the flat response vector,
+    as ``_multiscale_detect`` calls it) under the profiler: the ATen pad
+    calls it makes (B3 reads the flat vector, so none), its device
+    activities and their device ms per call."""
+    fn = functools.partial(masked_topk, resp_all, k)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    pads = sum(e.name in ("aten::pad", "aten::constant_pad_nd")
+               for e in prof.events())
+    return dict(pads=pads, **stage_profile(fn, reps=5))
+
+
+def check_topk(det, img: torch.Tensor, seed: int) -> dict:
+    """B3 on the flagship's flat response vector, read as rows of 1024
+    with -1 past its end (no padded copy), with planted ties (equal values
+    inside rows and the same value across rows): bit-identical to the plain
+    version; timed beside it and beside torch.topk on the padded matrix.
+    Then the flagship's top-k as a whole: no pad call (topk_pads)."""
+    p = det._plan(H, W)
+    resp_all = det._responses(img, p)[1]
     n = resp_all.numel()
     b = -(-n // ROW_S)
-    x2d = F.pad(resp_all, (0, b * ROW_S - n), value=-1.0).reshape(b, ROW_S)
-    x2d = x2d.clone()
-    # Planted ties: equal values inside rows and the same value across rows.
+    x = resp_all.clone()
     g = torch.Generator(device="cpu").manual_seed(seed)
-    rows = torch.randint(0, b, (64,), generator=g).to(x2d.device)
-    top = float(x2d.max()) + 1.0
-    x2d[rows, 7] = top
-    x2d[rows, 900] = top
-    x2d[rows[:8], :40] = 0.5 * top
-    got = cuda_topk.row_topm_cuda(x2d, M_CAND)
-    ref = cuda_topk.row_topm_plain(x2d, M_CAND)
+    rows = torch.randint(0, b - 1, (64,), generator=g).to(x.device)
+    top = float(x.max()) + 1.0
+    x[rows * ROW_S + 7] = top
+    x[rows * ROW_S + 900] = top
+    run = torch.arange(40, device=x.device)
+    x[(rows[:8, None] * ROW_S + run).reshape(-1)] = 0.5 * top
+    got = cuda_topk.row_topm_flat_cuda(x, M_CAND)
+    ref = cuda_topk.row_topm_flat_plain(x, M_CAND)
     for a, r, what in zip(got, ref, ("vals", "cols", "leftover")):
         require(torch.equal(a, r), f"row_topm: {what} not bit-identical")
     err = float((got[0] - ref[0]).abs().max())
-    # read once, write (vals, cols) + leftover; ~2 ops per value per round.
-    t_bytes, by = bound_ms(x2d.numel() * 4 + b * (8 * M_CAND + 4),
-                           2 * (M_CAND + 1) * x2d.numel())
+    x2d = F.pad(x, (0, b * ROW_S - n), value=-1.0).reshape(b, ROW_S)
+    # Read once, write (vals, cols) + leftover; operations: the plain
+    # version's m + 1 passes of ~2 per value (bytes bound it either way).
+    t_bytes, by = bound_ms(n * 4 + b * (8 * M_CAND + 4),
+                           2 * (M_CAND + 1) * n)
+    pads = topk_pads(resp_all, min(det.cfg.prefilter_count(), p.total))
+    require(pads["pads"] == 0, f"the flagship's top-k made {pads['pads']} "
+            "pad calls")
     return dict(
-        name="topk", err=err, shape=tuple(x2d.shape),
-        ms=time_ms(lambda: cuda_topk.row_topm_cuda(x2d, M_CAND), 20),
-        event_ms=event_median_ms(lambda: cuda_topk.row_topm_cuda(x2d, M_CAND),
-                                 20),
-        plain_ms=time_ms(lambda: cuda_topk.row_topm_plain(x2d, M_CAND), 5),
+        name="topk", err=err, shape=(n,),
+        ms=time_ms(lambda: cuda_topk.row_topm_flat_cuda(x, M_CAND), 20),
+        event_ms=event_median_ms(
+            lambda: cuda_topk.row_topm_flat_cuda(x, M_CAND), 20),
+        plain_ms=time_ms(lambda: cuda_topk.row_topm_flat_plain(x, M_CAND),
+                         5),
         library_ms=time_ms(lambda: torch.topk(x2d, M_CAND, dim=1), 20),
-        bound_ms=t_bytes, bound_by=by)
+        bound_ms=t_bytes, bound_by=by, topk_pads=pads["pads"],
+        topk_activities=pads["launches"], topk_device_ms=pads["device_ms"])
 
 
 def _sample_positions(lafs, level, offs, hs, ws, ps, align):
@@ -545,8 +582,9 @@ def _n_touched(buf, u, v, row0, h, w) -> int:
 
 def check_patches(site: str, buf, lafs, level, tables, ps=32,
                   align=False, bf16=False) -> dict:
-    """B4 (B4-bf16 with ``bf16``, which must equal its plain version bit
-    for bit) at one patch site."""
+    """B4 (B4-bf16 with ``bf16``) at one patch site of finite LAFs: equal
+    to its plain version bit for bit (torch.equal); timed beside it,
+    F.grid_sample and its bound."""
     offs, hs, ws = tables
 
     def kernel():
@@ -559,13 +597,12 @@ def check_patches(site: str, buf, lafs, level, tables, ps=32,
             buf, lafs, level, offs, hs, ws, ps=ps, align_corners=align,
             use_kernel=False, bf16=bf16)[0]
 
+    require(bool(torch.isfinite(lafs).all()), f"patches ({site}): LAFs "
+            "not finite")
     got, ref = kernel(), plain()
     err = float((got - ref).abs().max())
-    if bf16:
-        require(torch.equal(got, ref),
-                f"patches bf16 ({site}): not bit-identical, max err {err}")
-    require(bool(torch.all((got - ref).abs() <= 5e-3 + 5e-5 * ref.abs())),
-            f"patches ({site}): max err {err}")
+    require(torch.equal(got, ref), f"patches{' bf16' if bf16 else ''} "
+            f"({site}): not bit-identical, max err {err}")
     u, v, row0, h, w = _sample_positions(lafs, level, offs, hs, ws, ps,
                                          align)
     n_touched = _n_touched(buf, u, v, row0, h, w)
@@ -608,6 +645,27 @@ def check_patch_sites(det, img: torch.Tensor, bf16: bool = False) -> dict:
     return res
 
 
+def check_program_sites(det, img: torch.Tensor) -> dict:
+    """B4 at the HesAffNet program's two sites (every NMS survivor, about
+    34k patches of PS 32 on a 1080p image): the shape site, and the ori
+    site after AffNet's shapes and the gate, on the inputs the program's
+    stages give them."""
+    with torch.inference_mode(), float32_math():
+        p = det._plan(H, W)
+        cand = det._multiscale_detect(img, p)
+        cand["lafs"] = torch.cat([det.cfg.mr_size * cand["lafs"][:, :, 0:2],
+                                  cand["lafs"][:, :, 2:]], dim=2)
+        res = {"hes_shape": check_patches(
+            "hes_shape", cand["flat"], cand["lafs"].contiguous(),
+            cand["ext_level"].to(torch.int32), p.tables)}
+        cand = det._affine_shape(cand, p)
+        res["hes_ori"] = check_patches(
+            "hes_ori", cand["flat"], cand["lafs"].contiguous(),
+            cand["ext_level"].to(torch.int32), p.tables,
+            ps=det.ori_net.ps)
+    return res
+
+
 def phase_kernels(det, img: torch.Tensor, seed: int) -> dict:
     """Main-path inputs from one image through the extractor's stages, then
     each kernel against its plain version at those shapes."""
@@ -616,7 +674,7 @@ def phase_kernels(det, img: torch.Tensor, seed: int) -> dict:
     p = det._plan(H, W)
     res["blur_image"] = check_blur_image(img, p.plan)
     res.update(check_detect(det, img))
-    res["topk"] = check_topk(det._responses(img, p)[1], seed)
+    res["topk"] = check_topk(det, img, seed)
     for site, r in check_patch_sites(det, img).items():
         res[f"patches_{site}"] = r
     return res
@@ -1672,6 +1730,14 @@ def phase_hesaffnet(imgs, device, smi) -> dict:
         use_kernels=False)
     flat = cnn.eval_layout("flat")(hesaffnet.image_to_ells)
     nchw = cnn.eval_layout("nchw")(hesaffnet.image_to_ells)
+    sites = check_program_sites(det, torch.from_numpy(imgs[0]).to(device))
+    torch.cuda.synchronize()
+    for r in sites.values():
+        log(f"kernel {r['name']} {r['shape']}: max_abs_err {r['err']:.3g} "
+            f"ms {r['ms']:.4f} event_median_ms {r['event_ms']:.4f} "
+            f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+    log(f"hesaffnet B4 checks wall_s: {time.perf_counter() - t:.3f}")
     convs = check_conv_calls(
         functools.partial(hesaffnet.image_to_ells, det, imgs[0],
                           do_ori=True),
@@ -1759,7 +1825,8 @@ def phase_hesaffnet(imgs, device, smi) -> dict:
     log(f"hesaffnet peak device memory (flat, first pass): {peak_gb:.3f} GB "
         f"on {smi}")
     log(f"phase hesaffnet wall_s: {time.perf_counter() - t:.3f}")
-    return dict(counts=counts, convs=convs, ms=ms, ms_nchw=ms_nchw)
+    return dict(counts=counts, convs=convs, sites=sites, ms=ms,
+                ms_nchw=ms_nchw)
 
 
 def phase_flat_extraction(aff, desc, imgs, nchw_outs, device) -> dict:
@@ -1849,6 +1916,10 @@ def run_phases(args) -> int:
             f"ms {r['ms']:.4f} event_median_ms {r['event_ms']:.4f} "
             f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']} "
             f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+    tk = res["topk"]
+    log(f"flagship top-k (masked_topk on the flat response vector): "
+        f"{tk['topk_pads']} pad calls, {tk['topk_activities']:.0f} device "
+        f"activities, device ms {tk['topk_device_ms']:.4f} per call")
     log(f"phase kernels wall_s: {time.perf_counter() - t:.3f}")
 
     t = time.perf_counter()
@@ -1942,6 +2013,12 @@ def run_phases(args) -> int:
                      "affnet_tpu_torch/csrc/patches.cu",
                      "affnet_tpu/ops/pallas_patches.py:94 (mxu_dtype=bf16, "
                      ":214-247)"))
+    # B4 at the HesAffNet program's two sites, with that path's launches
+    # (phase 11: both sites together).
+    for r in hes["sites"].values():
+        rows.append((r, hes["counts"]["patches"],
+                     "affnet_tpu_torch/csrc/patches.cu",
+                     "affnet_tpu/ops/pallas_patches.py:94"))
     # B7 and B7-bf16 at the flagship's layer shapes (phase 10), with the
     # launches of the flagship under flat (phase 12) in float32 and in fast
     # mode; B7 at the HesAffNet program's shapes, with that path's

@@ -199,31 +199,91 @@ def test_topk_kernel(dev):
     x[17, :20] = 0.5
     x[250:] = -1.0
     for m in (1, 16, 32):
-        for a, r in zip(cuda_topk.row_topm(x, m),
+        for a, r in zip(cuda_topk.row_topm_flat(x.reshape(-1), m),
                         cuda_topk.row_topm_plain(x, m)):
             assert torch.equal(a, r)
 
 
-@pytest.mark.parametrize("align", [False, True])
-def test_patches_kernel(dev, align):
-    rng = np.random.RandomState(0)
+@pytest.mark.parametrize("m", [1, 16, 32])
+def test_topk_kernel_flat_ragged(dev, m):
+    """B3 on a flat vector whose length is no multiple of 1024 (the
+    entries past the end read as -1): bit-identical to the plain version,
+    with ties inside and across rows, an all-equal row, rows with more
+    than 16 positives or more candidates than the kernel ranks at once,
+    negatives above and below -1, and sparse detector-like rows."""
+    rng = np.random.RandomState(m)
+    n = 12 * 1024 + 333
+    x = np.zeros(n, np.float32)
+    x[:1024] = rng.exponential(1.0, 1024)
+    x[5] = x[100] = 50.0
+    x[1024:1064] = 0.5
+    x[2048:3072] = 0.25
+    x[3072:4096] = rng.uniform(-3.0, -0.5, 1024)
+    x[4096:5120] = -2.0
+    x[5120:6144] = -1.0
+    x[6144 + np.arange(0, 1024, 3)] = 1.0
+    x[7168 + 3] = x[8192 + 3] = 7.5
+    sparse = rng.choice(np.arange(9216, n), 300, replace=False)
+    x[sparse] = rng.exponential(2.0, 300)
+    xt = torch.from_numpy(x).to(dev)
+    before = cuda_topk.launches
+    got = cuda_topk.row_topm_flat(xt, m)
+    assert cuda_topk.launches == before + 1
+    for a, r in zip(got, cuda_topk.row_topm_flat_plain(xt, m)):
+        assert torch.equal(a, r)
+
+
+def _patch_inputs(dev, n=50, scale=0.3, seed=0):
+    rng = np.random.RandomState(seed)
     buf = torch.rand(150, 160, device=dev) * 255
     offs = torch.tensor([0, 100], dtype=torch.int32, device=dev)
     hs = torch.tensor([100, 50], dtype=torch.int32, device=dev)
     ws = torch.tensor([160, 80], dtype=torch.int32, device=dev)
-    A = rng.uniform(-0.3, 0.3, (50, 2, 2))
-    t = rng.uniform(-0.1, 1.1, (50, 2, 1))
+    A = rng.uniform(-scale, scale, (n, 2, 2))
+    t = rng.uniform(-0.1, 1.1, (n, 2, 1))
     lafs = torch.tensor(np.concatenate([A, t], 2), dtype=torch.float32,
                         device=dev)
-    lvl = torch.tensor(rng.randint(0, 2, 50), dtype=torch.int32, device=dev)
-    for ps in (19, 32):
+    lvl = torch.tensor(rng.randint(0, 2, n), dtype=torch.int32, device=dev)
+    return buf, lafs, lvl, offs, hs, ws
+
+
+@pytest.mark.parametrize("align", [False, True])
+def test_patches_kernel(dev, align):
+    """B4 equals its plain version bit for bit at the templated patch
+    sizes (32, 64) and at generic ones (19, 65, 96)."""
+    buf, lafs, lvl, offs, hs, ws = _patch_inputs(dev)
+    for ps in (19, 32, 64, 65, 96):
         got, ovf = cuda_patches.extract_patches_pyramid(
             buf, lafs, lvl, offs, hs, ws, ps=ps, align_corners=align)
         ref, _ = cuda_patches.extract_patches_pyramid(
             buf, lafs, lvl, offs, hs, ws, ps=ps, align_corners=align,
             use_kernel=False)
         assert ovf == 0
-        torch.testing.assert_close(got, ref, rtol=5e-5, atol=5e-3)
+        assert torch.equal(got, ref), ps
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_patches_kernel_large_footprints_and_nonfinite(dev, bf16):
+    """Footprints far beyond a patch's own size (elongated LAFs of scale
+    up to 3, most samples outside the level) are exact; a NaN or infinite
+    LAF gives what the plain version gives (NaN samples), reads nothing
+    out of bounds, and leaves the other patches exact."""
+    buf, lafs, lvl, offs, hs, ws = _patch_inputs(dev, n=40, scale=3.0)
+    lafs[:, 0, 0] *= 8.0
+    lafs[3, 0, 0] = float("nan")
+    lafs[7, 1, 2] = float("inf")
+    lafs[9, 1, 1] = -float("inf")
+    for ps in (32, 65):
+        got, _ = cuda_patches.extract_patches_pyramid(
+            buf, lafs, lvl, offs, hs, ws, ps=ps, bf16=bf16)
+        torch.cuda.synchronize()
+        ref, _ = cuda_patches.extract_patches_pyramid(
+            buf, lafs, lvl, offs, hs, ws, ps=ps, use_kernel=False, bf16=bf16)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+        assert torch.isnan(got[[3, 7, 9]]).all()
+        ok = torch.ones(40, dtype=torch.bool)
+        ok[[3, 7, 9]] = False
+        assert torch.equal(got[ok], ref[ok])
 
 
 def _batched_inputs(dev, n=40, h=64, pert=0.4, seed=0):
@@ -234,7 +294,8 @@ def _batched_inputs(dev, n=40, h=64, pert=0.4, seed=0):
     return imgs.to(dev), lafs.to(dev)
 
 
-@pytest.mark.parametrize("ps,align", [(64, False), (32, False), (32, True)])
+@pytest.mark.parametrize("ps,align", [(64, False), (32, False), (32, True),
+                                      (65, False), (96, True)])
 def test_batched_forward_kernel(dev, ps, align):
     """B5 forward (B4's kernel on per-sample tables) equals the plain
     version bit for bit, and counts one launch."""
@@ -252,7 +313,9 @@ def test_batched_forward_kernel(dev, ps, align):
 @pytest.mark.parametrize("ps,align,pert", [(32, False, 0.4),
                                            (64, False, 0.4),
                                            (32, True, 0.4),
-                                           (32, False, 3.0)])
+                                           (32, False, 3.0),
+                                           (65, False, 0.4),
+                                           (96, True, 0.4)])
 def test_batched_backward_kernel(dev, ps, align, pert):
     """B5 backward against autograd of the plain version: LAF cotangent
     rtol 1e-4 / atol 1e-4 of its largest magnitude (another summation

@@ -93,3 +93,15 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main([]) != 0
     assert capsys.readouterr().out == ""
+
+
+def test_sampler_and_topk_launch_signatures():
+    """B3 takes the flat vector and its length (no padded matrix); B4's
+    forward and backward take the base grid as a device pointer (no
+    by-value table, so no limit on the patch size)."""
+    P, I = build._P, build._I
+    assert build.SIGNATURES["launch_row_topm"] == [P, I, P, P, P, I, I, P]
+    fwd = build.SIGNATURES["launch_sample_patches"]
+    bwd = build.SIGNATURES["launch_sample_patches_bwd"]
+    assert len(fwd) == 16 and fwd[9] is P and fwd[11:13] == [I, I]
+    assert len(bwd) == 17 and bwd[9] is P and bwd[13:15] == [I, I]

@@ -31,12 +31,72 @@ def test_row_topm_bit_identical_to_jax(m):
     x = _tied_rows(m)
     pv, pc, plo = row_topm_pallas(jnp.asarray(x), m)
     xv, xc, xlo = jnms._row_topm(jnp.asarray(x), m)
-    tv, tc, tlo = (t.numpy() for t in cuda_topk.row_topm(torch.from_numpy(x),
-                                                         m))
+    tv, tc, tlo = (t.numpy() for t in cuda_topk.row_topm_flat(
+        torch.from_numpy(x).reshape(-1), m))
     for ours, pallas, xla in ((tv, pv, xv), (tc, pc, xc), (tlo, plo, xlo)):
         np.testing.assert_array_equal(ours, np.asarray(pallas))
         np.testing.assert_array_equal(ours, np.asarray(xla))
     assert tc.dtype == np.int32
+
+
+def _flat_cases(seed):
+    """A flat vector of 9 * 1024 + 333 entries: a dense row with a tie for
+    its first max, a run of equal values, more than 16 positives in a
+    sparse row, an all-equal row, negatives above and below -1, a row all
+    below -1, equal values across rows, a ragged last row."""
+    rng = np.random.RandomState(seed)
+    n = 9 * 1024 + 333
+    v = np.zeros(n, np.float32)
+    v[:1024] = rng.exponential(1.0, 1024)
+    v[7] = v[900] = v[:1024].max() + 1.0
+    v[1024 + 10:1024 + 30] = 9.99
+    v[1024 + rng.choice(np.arange(40, 1024), 40, replace=False)] = \
+        rng.uniform(1.0, 2.0, 40)
+    v[2048:3072] = 0.25
+    v[3072:4096] = rng.uniform(-3.0, -0.5, 1024)
+    v[4096:5120] = -2.0
+    v[5120 + 3] = v[6144 + 3] = 7.5
+    v[8192:] = rng.exponential(1.0, n - 8192)
+    return v
+
+
+@pytest.mark.parametrize("m", [1, 16, 32])
+def test_row_topm_flat_plain_equals_jax_on_padded_copy(m):
+    """B3's flat contract (no padded copy; the entries past the end read
+    as -1) in its plain version equals JAX's _row_topm on the vector
+    padded with -1, bit for bit."""
+    v = _flat_cases(m)
+    b = -(-v.size // 1024)
+    padded = np.pad(v, (0, b * 1024 - v.size), constant_values=-1.0)
+    xv, xc, xlo = jnms._row_topm(jnp.asarray(padded.reshape(b, 1024)), m)
+    tv, tc, tlo = (t.numpy() for t in cuda_topk.row_topm_flat(
+        torch.from_numpy(v), m))
+    for ours, xla in ((tv, xv), (tc, xc), (tlo, xlo)):
+        np.testing.assert_array_equal(ours, np.asarray(xla))
+    assert tc.dtype == np.int32 and tv.shape == (b, m)
+
+
+def test_two_stage_topk_passes_the_flat_vector(monkeypatch):
+    """two_stage_topk hands B3 the flat vector itself (no padded copy) and
+    equals the full stable sort on a ragged length."""
+    rng = np.random.RandomState(4)
+    v = np.zeros(N_BIG + 333, np.float32)
+    v[rng.choice(v.size, 3000, replace=False)] = rng.exponential(2.0, 3000)
+    v[-5:] = 4.0
+    seen = []
+    real = tnms.row_topm_flat
+
+    def spy(values, m, use_kernel=True):
+        seen.append(values)
+        return real(values, m, use_kernel)
+
+    monkeypatch.setattr(tnms, "row_topm_flat", spy)
+    x = torch.from_numpy(v)
+    got = tnms.two_stage_topk(x, 1000)
+    ref = tnms.sorted_topk(x, 1000)
+    assert len(seen) == 1 and seen[0] is x
+    np.testing.assert_array_equal(got[0].numpy(), ref[0].numpy())
+    np.testing.assert_array_equal(got[1].numpy(), ref[1].numpy())
 
 
 def _check_equal(v, k):
@@ -97,9 +157,9 @@ def test_masked_topk_small_path():
 
 
 def test_row_topm_wrapper_dispatch():
-    x = torch.from_numpy(_tied_rows(3))
+    x = torch.from_numpy(_tied_rows(3)).reshape(-1)
     before = cuda_topk.launches
-    cuda_topk.row_topm(x, 4)
+    cuda_topk.row_topm_flat(x, 4)
     assert cuda_topk.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_topk.row_topm_cuda(x, 4)
+        cuda_topk.row_topm_flat_cuda(x, 4)
