@@ -77,6 +77,8 @@
 // (k - 1) / 2, stride 1 or 2; float32: Ho * ceil(Wo / 8) <= 512 and one
 // channel of a patch within the 110 KB shared-memory budget per stage;
 // bf16: one patch's staged channels plus 8 outputs' weights within 227 KB.
+// ops/cuda_conv.py b7_takes restates these checks and the two launchers'
+// plans for the flat stack's stop rule: change both together.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -21,7 +21,12 @@ next power of two, so its output always holds every survivor; the port is
 eager and takes the survivors' indices with ``torch.nonzero`` (scan order,
 one host read of their count per image), which gives the same output
 without padding and without a top-k.  ``max_keypoints`` and the counts of
-``DetectorConfig`` therefore bind only top-k mode here.
+``DetectorConfig`` therefore bind only top-k mode here, unless a call asks
+for ``capped``: then threshold mode keeps what JAX's built program keeps
+before any retry (its bulk mode, ``parallel.make_sharded_image_pipeline``,
+runs that program as it is), the ``max_keypoints`` strongest survivors
+(the lowest index first among equal responses), in descending response
+order.
 
 ``do_ori`` runs the orientation stage at the "ori" patch site (B4, or
 B4-bf16 in fast mode): the orientation net's rotation composes with each
@@ -231,16 +236,24 @@ class ScaleSpaceAffinePatchExtractor:
         dedup(resp, counters, p.octaves, use_kernel=uk)
         return flat, resp
 
-    def _multiscale_detect(self, img: Tensor, p: _Plan) -> Dict[str, Tensor]:
+    def _multiscale_detect(self, img: Tensor, p: _Plan,
+                           capped: bool = False) -> Dict[str, Tensor]:
         """Pyramid + per-octave detection + global top-k; threshold mode
         keeps every survivor in scan order instead (none: one invalid
-        candidate, so the stages keep their shapes).  (sigma, y, x) are
+        candidate, so the stages keep their shapes), or with ``capped``
+        the ``max_keypoints`` strongest in top-k order.  (sigma, y, x) are
         computed at the kept indices only (B2's refine)."""
         cfg = self.cfg
         flat, resp_all = self._responses(img, p)
         survivor = resp_all > 0
         n_detected = survivor.sum()
-        if cfg.threshold_mode:
+        if cfg.threshold_mode and capped:
+            # JAX's program top-k's max_keypoints entries, zero responses
+            # (invalid) past the survivors: the same valid set and order.
+            k = max(1, min(cfg.max_keypoints, int(n_detected)))
+            vals, idxs, valid = masked_topk(resp_all, k,
+                                            use_kernel=self.use_kernels)
+        elif cfg.threshold_mode:
             idxs = torch.nonzero(survivor)[:, 0]
             if idxs.numel() == 0:
                 idxs = torch.zeros(1, dtype=idxs.dtype, device=idxs.device)
@@ -356,16 +369,18 @@ class ScaleSpaceAffinePatchExtractor:
 
     @float32_math()
     def run(self, img: Tensor, describe: bool = False,
-            do_ori: bool = False) -> Dict[str, Tensor]:
+            do_ori: bool = False, capped: bool = False) -> Dict[str, Tensor]:
         """The whole pipeline on an (H, W) float32 tensor on ``device``:
-        fixed-size outputs plus ``valid`` and ``restore``, on the device."""
+        fixed-size outputs plus ``valid`` and ``restore``, on the device.
+        ``capped``: threshold mode keeps the ``max_keypoints`` strongest
+        survivors (module docstring)."""
         cfg = self.cfg
         if do_ori and self.ori_net is None:
             raise ValueError("do_ori needs an ori_net (the handcrafted "
                              "orientation estimator is not ported yet)")
         h, w = img.shape
         p = self._plan(h, w)
-        cand = self._multiscale_detect(img, p)
+        cand = self._multiscale_detect(img, p, capped)
         # LAF A *= mrSize (the measurement region).
         cand["lafs"] = torch.cat([cfg.mr_size * cand["lafs"][:, :, 0:2],
                                   cand["lafs"][:, :, 2:]], dim=2)
@@ -386,16 +401,17 @@ class ScaleSpaceAffinePatchExtractor:
         return out
 
     @torch.inference_mode()
-    def __call__(self, img, describe: bool = False, do_ori: bool = False
-                 ) -> Dict[str, np.ndarray]:
+    def __call__(self, img, describe: bool = False, do_ori: bool = False,
+                 capped: bool = False) -> Dict[str, np.ndarray]:
         """Run the pipeline on an (H, W) grayscale image (numpy or tensor).
         Returns host arrays of the VALID keypoints in reference order (top-k
-        order; scan order in threshold mode), plus ``n_detected``, like the
-        JAX extractor."""
+        order; scan order in threshold mode, top-k order with ``capped``),
+        plus ``n_detected``, like the JAX extractor."""
         img = torch.as_tensor(np.asarray(img, np.float32)
                               if not torch.is_tensor(img) else img,
                               dtype=torch.float32).to(self.device)
-        out = self.run(img.contiguous(), describe=describe, do_ori=do_ori)
+        out = self.run(img.contiguous(), describe=describe, do_ori=do_ori,
+                       capped=capped)
         n_detected = int(out.pop("n_detected"))
         n_overflow = out.pop("n_overflow")
         if n_overflow:

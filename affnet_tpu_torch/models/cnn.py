@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv_flat import activation, out_extent
-from ..ops.cuda_conv import conv_flat
+from ..ops.cuda_conv import b7_takes, conv_flat
 
 Tensor = torch.Tensor
 
@@ -260,11 +260,18 @@ def apply_flat(layers, x: Tensor, dtype: Optional[torch.dtype] = None,
     - A 2x2 max pool works on the flat layout; dropout is the identity.
     - The stack stops at the first layer it does not cover: an output
       width not a multiple of 8, a non-square kernel, a stride other than
-      1 or 2, a kernel as large as the map, or a map with an odd number of
+      1 or 2, a kernel as large as the map, a map with an odd number of
       pixels (where the TPU kernel's 128-lane blocks must hold 128 patches
       and exceed its VMEM budget: TFeat's 6x6 layer on 13x13 maps, JAX's
-      ``block_patches`` verdict).  The remaining layers run through
-      :func:`apply_layers`.
+      ``block_patches`` verdict), or a layer that B7 does not take
+      (:func:`..ops.cuda_conv.b7_takes`, the kernel's own contract: a
+      5x5 kernel, a 7x7 one at pad 1, a map past its budgets), on every
+      device, so the plan does not depend on where it runs.  The
+      remaining layers run through :func:`apply_layers`.  JAX's flat
+      stack takes the last kind through its Pallas conv, which gives the
+      stock result for a SAME or VALID layer; it keeps a 7x7 pad-1
+      layer's output at the map's full extent (it crops only pad-0
+      layers), and there the port matches JAX's stock layout instead.
     """
     layers = list(layers)
     n, c, h, w = x.shape
@@ -292,7 +299,8 @@ def apply_flat(layers, x: Tensor, dtype: Optional[torch.dtype] = None,
                 continue
             if (o % 8 or kh != kw or layer.stride not in ((1, 1), (2, 2))
                     or layer.padding != (pad, pad) or kh >= min(h, w)
-                    or (h * w) % 2):
+                    or (h * w) % 2
+                    or not b7_takes(c, o, kh, pad, stride, h, w, dt)):
                 break
             xf = conv_flat(xf, wgt, bias, (h, w), pad, act, stride,
                            use_kernel=use_kernel)

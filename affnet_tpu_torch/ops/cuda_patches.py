@@ -19,8 +19,13 @@ array (:func:`lin_device`), so the patch size has no upper limit.
 B5 is the same ``_sampler_kernel`` reached through the training warps'
 custom VJP (``_batched_sample_diff``): its forward is B4's kernel on
 per-sample tables (:func:`sample_batched_cuda`), its backward the kernel of
-``csrc/patches_bwd.cu`` (:func:`sample_bwd_cuda`).  The autograd pairing is
-``ops/batched_sampler.py``.
+``csrc/patches_bwd.cu`` (:func:`sample_bwd_cuda`), which has B4's design
+(persistent blocks, PS 32/64 templated and a generic instance, runs of 4
+samples, an unclamped path inside the level, 32-bit indices) and sums the
+LAF cotangent in a fixed order: it equals
+:func:`.patches.laf_cotangent_replay` bit for bit, and autograd of the
+plain sampler to float32 rounding.  The buffer cotangent (atomics) runs
+only when asked for.  The autograd pairing is ``ops/batched_sampler.py``.
 
 B6 is the same ``_sampler_kernel`` reached through the shape optimizer's
 ``make_pyramid_sampler_diff``: LAF i samples flat pyramid level
@@ -166,6 +171,9 @@ def _sample_bwd(buf2d: Tensor, lafs: Tensor, tables: tuple, g: Tensor,
     _check_sampler_args(buf2d, lafs, level_idx, row_offsets, heights, widths,
                         ps)
     check_tensor(g, "g", torch.float32, 3)
+    if buf2d.numel() >= 1 << 31:
+        raise ValueError("patches bwd: the buffer must hold fewer than 2^31 "
+                         "elements (32-bit indexing)")
     n = lafs.shape[0]
     if g.shape != (n, ps, ps):
         raise ValueError(f"patches bwd: g has shape {tuple(g.shape)}, "

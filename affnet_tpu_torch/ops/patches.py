@@ -35,19 +35,16 @@ def base_lin(ps: int, align_corners: bool) -> np.ndarray:
             - np.float32(1.0))
 
 
-def extract_patches_from_flat_pyramid(buf2d: Tensor, lafs: Tensor,
-                                      level_idx: Tensor, row_offsets: Tensor,
-                                      heights: Tensor, widths: Tensor,
-                                      ps: int = 32,
-                                      align_corners: bool = False,
-                                      bf16: bool = False) -> Tensor:
-    """(N, PS, PS) float32 bilinear patches; LAF i samples flat level
-    ``level_idx[i]`` of the row-padded buffer (pitch = buffer width)."""
+def _sample_positions(lafs: Tensor, level_idx: Tensor, row_offsets: Tensor,
+                      heights: Tensor, widths: Tensor, ps: int,
+                      align_corners: bool):
+    """Each sample's position (u, v) in its level's pixels, (N, PS, PS),
+    with the level's (height, width, first row) as int64 and (h, w, m)
+    as float, each (N, 1, 1), and the base grid (gx, gy) as (PS, PS)."""
     dev, dt = lafs.device, lafs.dtype
     lin = torch.from_numpy(base_lin(ps, align_corners)).to(dev)
     gx = lin[None, :].expand(ps, ps)
     gy = lin[:, None].expand(ps, ps)
-    n = lafs.shape[0]
     lvl = level_idx.long()
     hi = heights[lvl][:, None, None]
     wi = widths[lvl][:, None, None]
@@ -64,6 +61,21 @@ def extract_patches_from_flat_pyramid(buf2d: Tensor, lafs: Tensor,
     else:
         u = xs - 0.5
         v = ys - 0.5
+    return u, v, (hi, wi, ro), (h, w, m), (gx, gy)
+
+
+def extract_patches_from_flat_pyramid(buf2d: Tensor, lafs: Tensor,
+                                      level_idx: Tensor, row_offsets: Tensor,
+                                      heights: Tensor, widths: Tensor,
+                                      ps: int = 32,
+                                      align_corners: bool = False,
+                                      bf16: bool = False) -> Tensor:
+    """(N, PS, PS) float32 bilinear patches; LAF i samples flat level
+    ``level_idx[i]`` of the row-padded buffer (pitch = buffer width)."""
+    dt = lafs.dtype
+    n = lafs.shape[0]
+    u, v, (hi, wi, ro), _, _ = _sample_positions(
+        lafs, level_idx, row_offsets, heights, widths, ps, align_corners)
     pitch = buf2d.shape[1]
     flat = buf2d.reshape(-1)
     x0 = torch.floor(u)
@@ -100,6 +112,102 @@ def extract_patches_from_flat_pyramid(buf2d: Tensor, lafs: Tensor,
            + corner(x0i, y0i + 1, (1 - fx) * fy)
            + corner(x0i + 1, y0i + 1, fx * fy))
     return out.reshape(n, ps, ps)
+
+
+def laf_cotangent_replay(buf2d: Tensor, lafs: Tensor, level_idx: Tensor,
+                         row_offsets: Tensor, heights: Tensor,
+                         widths: Tensor, g: Tensor, ps: int = 32,
+                         align_corners: bool = False) -> Tensor:
+    """The LAF cotangent of :func:`extract_patches_from_flat_pyramid` for
+    upstream gradient ``g`` (N, PS, PS), computed in the order and rounding
+    of kernel B5/B6 backward (``csrc/patches_bwd.cu``), so the kernel's
+    result equals it bit for bit: the (N, 2, 3) cotangent.  Used by the
+    tests and ``chip_smoke.py`` to hold the kernel; autograd of the sampler
+    is the plain version.
+
+    Per sample: the forward's position, corner values selected to 0 outside
+    the level (and everywhere for positions not within 1e9 px), gu = g du,
+    gv = g dv.  Per thread of the kernel's 256: PS 32 and 64, thread t owns
+    column t % PS of PS*PS/256 consecutive rows and sums gu, gu gy, gv,
+    gv gy down them, then multiplies the gu and gv sums by its gx; any
+    other PS, thread t sums gu gx, gu gy, gu, gv gx, gv gy, gv over the
+    samples t, t + 256, ... in turn.  Then each warp's shuffle-down tree
+    (lane i adds lane i + 16, then i + 8, ...), the eight warps added in
+    order, and the scale (s_u m), (s_u w), (s_v m), (s_v h)."""
+    n = lafs.shape[0]
+    u, v, (hi, wi, ro), (h, w, m), (gx, gy) = _sample_positions(
+        lafs, level_idx, row_offsets, heights, widths, ps, align_corners)
+    flat = buf2d.reshape(-1)
+    pitch = buf2d.shape[1]
+    x0 = torch.floor(u)
+    y0 = torch.floor(v)
+    fx = u - x0
+    fy = v - y0
+    near = (torch.abs(u) < 1e9) & (torch.abs(v) < 1e9)
+    zero = torch.zeros_like(x0)
+    x0i = torch.where(near, x0, zero).to(torch.int64)
+    y0i = torch.where(near, y0, zero).to(torch.int64)
+
+    def corner(xc, yc):
+        inb = near & (xc >= 0) & (xc <= wi - 1) & (yc >= 0) & (yc <= hi - 1)
+        xcc = torch.minimum(torch.clamp(xc, min=0), wi - 1)
+        ycc = torch.minimum(torch.clamp(yc, min=0), hi - 1)
+        vals = flat[(ro + ycc) * pitch + xcc]
+        return torch.where(inb, vals, torch.zeros_like(vals))
+
+    v00, v10 = corner(x0i, y0i), corner(x0i + 1, y0i)
+    v01, v11 = corner(x0i, y0i + 1), corner(x0i + 1, y0i + 1)
+    du = (1 - fy) * (v10 - v00) + fy * (v11 - v01)
+    dv = (1 - fx) * (v01 - v00) + fx * (v11 - v10)
+    gu, gv = g * du, g * dv
+    threads = 256
+    if ps in (32, 64):
+        per, r0s = ps * ps // threads, threads // ps
+        gu4, gv4 = (t.reshape(n, r0s, per, ps) for t in (gu, gv))
+        gy4 = gy.reshape(r0s, per, ps)
+        acc = [torch.zeros((n, r0s, ps), dtype=gu.dtype, device=gu.device)
+               for _ in range(4)]
+        for k in range(per):
+            a, b, gyk = gu4[:, :, k], gv4[:, :, k], gy4[:, k]
+            acc = [acc[0] + a, acc[1] + a * gyk, acc[2] + b,
+                   acc[3] + b * gyk]
+        gxc = gx[0]
+        parts = [gxc * acc[0], acc[1], acc[0], gxc * acc[2], acc[3], acc[2]]
+    else:
+        steps = -(-ps * ps // threads)
+        pad = steps * threads - ps * ps
+
+        def lay(t):
+            t = t.expand(n, ps, ps).reshape(n, ps * ps)
+            return torch.nn.functional.pad(t, (0, pad)).reshape(
+                n, steps, threads)
+
+        gu3, gv3, gx3, gy3 = (lay(t) for t in (gu, gv, gx, gy))
+        valid = torch.arange(steps * threads, device=gu.device).reshape(
+            steps, threads) < ps * ps
+        acc = [torch.zeros((n, threads), dtype=gu.dtype, device=gu.device)
+               for _ in range(6)]
+        for j in range(steps):
+            a, b, ok = gu3[:, j], gv3[:, j], valid[j]
+            terms = [a * gx3[:, j], a * gy3[:, j], a, b * gx3[:, j],
+                     b * gy3[:, j], b]
+            acc = [torch.where(ok, s + t, s) for s, t in zip(acc, terms)]
+        parts = acc
+    x = torch.stack([p.reshape(n, threads) for p in parts], 1)
+    x = x.reshape(n, 6, threads // 32, 32)
+    for off in (16, 8, 4, 2, 1):
+        x = x[..., :off] + x[..., off:2 * off]
+    tot = x[..., 0, 0]
+    for wp in range(1, threads // 32):
+        tot = tot + x[:, :, wp, 0]
+    h1, w1, m1 = h[:, 0, 0], w[:, 0, 0], m[:, 0, 0]
+    if align_corners:
+        su, sv = (w1 - 1.0) / w1, (h1 - 1.0) / h1
+    else:
+        su = sv = torch.ones_like(w1)
+    scale = torch.stack([su * m1, su * m1, su * w1, sv * m1, sv * m1,
+                         sv * h1], 1)
+    return (scale * tot).reshape(n, 2, 3)
 
 
 def to_bf16(x: Tensor) -> Tensor:

@@ -42,8 +42,11 @@ Phases, each timed and each fatal on failure:
                per-sample tables, and its backward csrc/patches_bwd.cu)
                against its plain version at the shapes of one training step
                (PS 64 warps of 1024 64x64 patches, the PS 32 rewarp of
-               2048), timed beside the plain version, F.affine_grid +
-               F.grid_sample and its bound.
+               2048): the forward bit for bit, the backward's LAF
+               cotangent equal to the replay of the kernel's order
+               (ops/patches.py laf_cotangent_replay) and within rtol/atol
+               1e-4 of autograd's; timed beside the plain version,
+               F.affine_grid + F.grid_sample and its bound.
   6. train   — AffNet training at the published width through train_loop
                (AffNetFast, batch 1024, HardNegC against the frozen
                HardTFeatNet, SGD lr 0.005, synthetic pairs from the committed
@@ -55,8 +58,10 @@ Phases, each timed and each fatal on failure:
                pyramid sampler: B4's kernel and csrc/patches_bwd.cu on the
                pyramid's level table) on the 640x800 fixture's one-level
                pyramid with the 200 detected LAFs, whose levels differ:
-               forward bit-identical to the plain version, backward against
-               autograd of the plain version, only the asked cotangents;
+               forward bit-identical to the plain version, the backward's
+               LAF cotangent equal to the replay of the kernel's order and
+               against autograd of the plain version, only the asked
+               cotangents;
                timed beside the plain version, affine_grid + grid_sample and
                its bound.
   8. shape opt — the reference's shape-optimization script through the
@@ -82,7 +87,10 @@ Phases, each timed and each fatal on failure:
                desc-site patches), plus the "none" and "elu" activations on
                random inputs; timed beside the plain version, F.conv2d
                (cuDNN) on the layer's own work and that work's bound;
-               B7-bf16's rounding against the float64 sum.
+               B7-bf16's rounding against the float64 sum; nets with a
+               5x5 layer and a 7x7 pad-1 layer (outside B7's contract)
+               under the flat layout: one B7 launch, the rest stock, the
+               features against the plain path.
  11. hesaffnet — the HesAffNet program at its command-line defaults (th=-1
                threshold mode, --do-ori: AffNetFast and OriNetFast32 over
                every NMS survivor) with the flat layout on the images of
@@ -95,7 +103,11 @@ Phases, each timed and each fatal on failure:
                against the same program through the plain versions on the
                card (LAFs within the detector tests' tolerance) and against
                the nchw layout (flips counted), ms per image beside nchw's,
-               peak device memory.
+               peak device memory; then the program's main in bulk mode
+               (--mesh 1, two of the images as .npy files): one file per
+               image holding the gated regions of the cap's strongest
+               survivors (the cap binds at 1080p), against the
+               single-image runs.
  12. flat extraction — the flagship top-k extraction with the flat layout
                in float32 and fast mode: 7 B7 (B7-bf16) launches per image,
                keypoints against the nchw runs counted, ms per image beside
@@ -149,6 +161,7 @@ from affnet_tpu_torch.models import AffNetFast, HardTFeatNet, params_from_jax
 from affnet_tpu_torch.io_formats import read_ells, write_ells
 from affnet_tpu_torch.models import cnn
 from affnet_tpu_torch.models.cnn import init_params
+from affnet_tpu_torch.models.zoo import PatchNet
 from affnet_tpu_torch.ops import (EXTRACTION_KERNELS, FAST_EXTRACTION_KERNELS,
                                   cuda_blur, cuda_conv, cuda_detect,
                                   cuda_patches, cuda_topk, launch_counts,
@@ -157,7 +170,8 @@ from affnet_tpu_torch.ops.conv_flat import conv_layer_plain, out_extent
 from affnet_tpu_torch.ops.nms import M_CAND, ROW_S, masked_topk
 from affnet_tpu_torch.ops.patches import (base_lin, batched_tables,
                                           extract_patches_batched,
-                                          extract_patches_from_flat_pyramid)
+                                          extract_patches_from_flat_pyramid,
+                                          laf_cotangent_replay)
 from affnet_tpu_torch.ops.scalespace import (build_flat_pyramid,
                                              gauss_kernel_1d, pyramid_steps)
 from affnet_tpu_torch.shape_opt import LAFShapeOptimizer
@@ -861,9 +875,11 @@ def check_batched_fwd(imgs, lafs, ps) -> dict:
 def check_batched_bwd(full, lafs, seed) -> dict:
     """B5 backward at the training rewarp (PS 32 from the 2048 64x64 warps)
     against autograd of the plain version on random upstream weights g.
-    LAF cotangent: rtol 1e-4, atol 1e-4 of its largest magnitude (another
-    summation order), and identical from run to run; image cotangent:
-    rtol 1e-5, atol 1e-5 (atomicAdd order)."""
+    LAF cotangent: equal bit for bit to the replay of the kernel's order
+    (ops/patches.py laf_cotangent_replay) and so from run to run, and
+    within rtol 1e-4, atol 1e-4 of its largest magnitude of autograd's
+    (another summation order); image cotangent: rtol 1e-5, atol 1e-5
+    (atomicAdd order)."""
     ps = 32
     n, h, w = full.shape
     buf = full.reshape(n * h, w)
@@ -879,6 +895,10 @@ def check_batched_bwd(full, lafs, seed) -> dict:
     got_i, got_l2 = kernel(True)
     require(torch.equal(got_l, got_l2),
             "batched bwd: LAF cotangent differs from run to run")
+    require(torch.equal(got_l, laf_cotangent_replay(buf, lafs, *tables, g,
+                                                    ps=ps)),
+            "batched bwd: LAF cotangent differs from the replay of the "
+            "kernel's order")
     im = full.clone().requires_grad_(True)
     lf = lafs.clone().requires_grad_(True)
     out = extract_patches_batched(im, lf, ps=ps)
@@ -1108,7 +1128,8 @@ def run_training(seed, device) -> tuple:
             f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
             f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
     b = res["batched_bwd"]
-    log(f"batched_bwd: LAF cotangent largest |value| {b['laf_scale']:.4g}; "
+    log(f"batched_bwd: LAF cotangent equal to the replay of the kernel's "
+        f"order and from run to run, largest |value| {b['laf_scale']:.4g}; "
         f"with the image cotangent ms {b['ms_with_image']:.4f} "
         f"(image max_abs_err {b['err_img']:.3g}); library forward+backward "
         f"ms {b['library_fwd_bwd_ms']:.4f}; library forward max |diff| "
@@ -1231,6 +1252,10 @@ def check_pyramid_kernels(opt, st, seed) -> dict:
     got_b, got_l2 = bwd(True)
     require(torch.equal(got_l, got_l2),
             "B6 backward: LAF cotangent differs from run to run")
+    require(torch.equal(got_l, laf_cotangent_replay(buf, nlafs, lvl, *tables,
+                                                    g, ps=ps)),
+            "B6 backward: LAF cotangent differs from the replay of the "
+            "kernel's order")
     b = buf.clone().requires_grad_(True)
     lf = nlafs.clone().requires_grad_(True)
     out = extract_patches_from_flat_pyramid(b, lf, lvl, *tables, ps=ps)
@@ -1348,7 +1373,8 @@ def run_shape_opt(device, seed) -> tuple:
     b = res["pyramid_bwd"]
     log(f"pyramid_fwd: levels {res['pyramid_fwd']['levels']}, library "
         f"forward max |diff| {res['pyramid_fwd']['library_err']:.3g} (samples "
-        f"inside their level); pyramid_bwd: LAF cotangent largest "
+        f"inside their level); pyramid_bwd: LAF cotangent equal to the "
+        f"replay of the kernel's order and from run to run, largest "
         f"|value| {b['laf_scale']:.4g}, with the buffer cotangent ms "
         f"{b['ms_with_buffer']:.4f} (buffer max_abs_err {b['err_buf']:.3g})")
     log(f"phase shape kernels wall_s: {time.perf_counter() - t:.3f}")
@@ -1701,8 +1727,44 @@ def phase_conv(det, fast_det, img, seed) -> dict:
     torch.cuda.synchronize()
     for r in res.values():
         log_conv(r)
+    check_flat_route(img.device, seed)
     log(f"phase conv kernels wall_s: {time.perf_counter() - t:.3f}")
     return res
+
+
+def check_flat_route(device, seed) -> None:
+    """Nets whose middle layer B7 does not take (a 5x5 SAME layer; a 7x7
+    layer at pad 1) under the flat layout on 3000 patches: the stack puts
+    the first 3x3 layer through B7 (one launch, none failed) and hands the
+    rest to the stock layers; the features within 1e-5 of the plain
+    path's (the flat nets' bound, tests/test_torch_cuda.py)."""
+    nn = torch.nn
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    patches = torch.rand((3000, 32, 32), generator=gen).to(device)
+    for k, pad in ((5, 2), (7, 1)):
+        require(not cuda_conv.b7_takes(16, 16, k, pad, 1, 32, 32),
+                f"b7_takes: a {k}x{k} layer at pad {pad}")
+        net = init_params(PatchNet([
+            nn.Conv2d(1, 16, 3, 1, 1, bias=False), cnn.batch_norm(16),
+            nn.ReLU(), nn.Conv2d(16, 16, k, 1, pad, bias=False),
+            cnn.batch_norm(16), nn.ReLU(),
+            nn.Conv2d(16, 32, 3, 2, 1, bias=False), cnn.batch_norm(32),
+            nn.ReLU(), nn.AdaptiveAvgPool2d(1)]), gen).to(device).eval()
+        with cnn.eval_layout("flat"), torch.inference_mode(), float32_math():
+            before = cuda_conv.launches
+            got = net.feature_vectors(patches)
+            torch.cuda.synchronize()
+            launched = cuda_conv.launches - before
+            ref = net.feature_vectors(patches, use_kernels=False)
+        err = float((got - ref).abs().max())
+        require(launched == 1, f"flat route {k}x{k} pad {pad}: {launched} "
+                "B7 launches, expected 1")
+        require(bool(torch.all((got - ref).abs() <= 1e-5 + 1e-5
+                               * ref.abs())),
+                f"flat route {k}x{k} pad {pad}: max err {err}")
+        log(f"flat route: a {k}x{k} pad-{pad} layer runs stock after 1 B7 "
+            f"launch; features against the plain path max_abs_err "
+            f"{err:.3g}")
 
 
 def keypoint_flips(a: dict, b: dict) -> tuple:
@@ -1815,6 +1877,7 @@ def phase_hesaffnet(imgs, device, smi) -> dict:
                 f"{fp[1]} only there (gate flips), LAF max |diff| "
                 f"{lerr.max():.3g} px, {(lerr > 1e-2).sum()} over 1e-2; "
                 f"against nchw {fn[0]} / {fn[1]}")
+    mesh = check_program_mesh(det, imgs[:2], outs[:2], device)
     per_img, per_img_nchw = time_per_image(
         [functools.partial(flat, det, do_ori=True),
          functools.partial(nchw, det, do_ori=True)], imgs)
@@ -1826,7 +1889,89 @@ def phase_hesaffnet(imgs, device, smi) -> dict:
         f"on {smi}")
     log(f"phase hesaffnet wall_s: {time.perf_counter() - t:.3f}")
     return dict(counts=counts, convs=convs, sites=sites, ms=ms,
-                ms_nchw=ms_nchw)
+                ms_nchw=ms_nchw, mesh=mesh)
+
+
+def _matched_regions(a: np.ndarray, b: np.ndarray, tol: float = 1e-2
+                     ) -> np.ndarray:
+    """For each ellipse of ``a``, whether ``b`` holds one with the same
+    centre (within ``tol`` px in each coordinate) and shape (within rtol
+    1e-2): the program tests' allowances (tests/test_torch_hesaffnet.py)."""
+    order = np.argsort(b[:, 0], kind="stable")
+    bx = b[order, 0]
+    lo = np.searchsorted(bx, a[:, 0] - tol)
+    hi = np.searchsorted(bx, a[:, 0] + tol, side="right")
+    found = np.zeros(len(a), bool)
+    for i in range(len(a)):
+        c = b[order[lo[i]:hi[i]]]
+        found[i] = bool(np.any(
+            (np.abs(c[:, 1] - a[i, 1]) < tol)
+            & np.all(np.abs(c[:, 2:] - a[i, 2:])
+                     <= 1e-2 * np.abs(c[:, 2:]) + 1e-6, axis=1)))
+    return found
+
+
+def check_program_mesh(det, imgs, outs, device) -> dict:
+    """The program's ``main`` with ``--mesh 1`` on two same-shape 1080p
+    images (written as .npy: the card's machine has no PIL) under the flat
+    layout, the launches counted from 0 around it: one file per image.
+    At about 34k survivors the cap (16384, the command-line default)
+    binds, so each file must hold the gated regions of the cap's strongest
+    survivors, as JAX's bulk mode does: at most min(survivors, cap), and
+    the regions of the same image's single-image run (phase 11's counted
+    pass) whose response is at least the cap-th largest survivor response
+    (torch.topk of the response vector), up to the gate-flip allowance of
+    phase 11 each way."""
+    t = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, img in enumerate(imgs):
+            paths.append(os.path.join(tmp, f"img{i}.npy"))
+            np.save(paths[-1], img)
+        reset_launch_counts()
+        cnn.eval_layout("flat")(hesaffnet.main)(
+            [",".join(paths), os.path.join(tmp, "o.ells"), "--do-ori",
+             "--mesh", "1"])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        log(f"hesaffnet --mesh 1 launches ({len(imgs)} images): "
+            f"{json.dumps(counts)}")
+        for name in ("blur", "detect", "dedup", "refine", "topk", "patches",
+                     "conv"):
+            require(counts[name] > 0, f"kernel {name} not launched by the "
+                    "program's bulk mode")
+        require(counts["conv"] == B7_PER_PROGRAM_PASS * len(imgs),
+                f"bulk mode: {counts['conv']} B7 launches")
+        for i, (img, (ells, out)) in enumerate(zip(imgs, outs)):
+            got = read_ells(os.path.join(tmp, f"o_{i}.ells"))
+            n_det = int(out["n_detected"])
+            with torch.inference_mode():
+                resp = det._responses(torch.from_numpy(img).to(device),
+                                      det._plan(H, W))[1]
+                kth = float(torch.topk(resp, min(PROGRAM_CAP, n_det))
+                            .values[-1])
+            expect = out["resp"] >= kth
+            limit = max(2, 2 * len(ells) // 1000)
+            require(n_det > PROGRAM_CAP, f"image {i}: {n_det} survivors: "
+                    "the cap does not bind")
+            require(len(got) <= min(n_det, PROGRAM_CAP)
+                    and np.isfinite(got).all(),
+                    f"image {i}: {len(got)} regions in the bulk file")
+            extra = int((~_matched_regions(got, ells[expect])).sum())
+            missing = int((~_matched_regions(ells[expect], got)).sum())
+            require(extra <= limit and missing <= limit,
+                    f"image {i}: the bulk file has {extra} regions not "
+                    f"among the single run's {int(expect.sum())} strongest, "
+                    f"and misses {missing} of them (allowance {limit})")
+            log(f"image {i} --mesh 1: {len(got)} regions (survivors "
+                f"{n_det}, cap {PROGRAM_CAP}); the single run's regions "
+                f"among the cap's strongest {int(expect.sum())}: {extra} "
+                f"only in the file, {missing} only in the single run")
+            res[i] = dict(regions=len(got), expected=int(expect.sum()),
+                          extra=extra, missing=missing)
+    log(f"hesaffnet --mesh 1 wall_s: {time.perf_counter() - t:.3f}")
+    return dict(counts=counts, images=res)
 
 
 def phase_flat_extraction(aff, desc, imgs, nchw_outs, device) -> dict:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device time of the patch sampler (B4, B4-bf16, B5 and B6 forward) and of
-the row top-m B3 at the main paths' sites, for one checkout of the
-PyTorch/CUDA port, or for two in turns.
+"""Device time of the patch sampler (B4, B4-bf16, B5 and B6 forward), of
+its backward (B5 and B6 backward) and of the row top-m B3 at the main
+paths' sites, for one checkout of the PyTorch/CUDA port, or for two in
+turns.
 
     python3 scripts/bench_sampler_topk.py [--root DIR] [--seed 0]
     python3 scripts/bench_sampler_topk.py --compare OTHER [--seed 0]
@@ -23,7 +24,12 @@ and the inputs each checkout's own stages give them:
   - ``batched_ps64``, ``batched_ps32`` (B5 forward): one training step's
     augment warp (1024 64x64 patches) and rewarp (2048 32x32 patches by an
     initialized AffNetFast), as chip_smoke's phase 5 makes them;
+  - ``batched_bwd`` (B5 backward): the rewarp's LAF cotangent alone, as
+    the training step asks for it, on seeded upstream weights in [-1, 1],
+    and ``batched_bwd_buf`` with the image cotangent too;
   - ``pyramid`` (B6 forward): the 200 LAFs of chip_smoke's phase 7;
+    ``pyramid_bwd`` and ``pyramid_bwd_buf`` (B6 backward) there, as for
+    B5;
   - ``topk`` (B3): one launch on the flagship's flat response vector (a
     checkout whose B3 takes a (B, 1024) matrix gets the padded copy, made
     outside the timed call), and ``topk_stage``: the flagship's whole top-k
@@ -31,10 +37,14 @@ and the inputs each checkout's own stages give them:
     device activities and device ms per call.
 
 Kernel times are CUPTI device ms per call (``chip_smoke.time_ms``, 20
-calls).  Each site also records whether the kernel's output equals its
-plain version's bit for bit (``torch.equal``; ``exact``), so the same run
-holds either checkout's kernels to exactness.  Prints one JSON line (the
-card's name and power limit in it).
+calls).  Each forward site also records whether the kernel's output
+equals its plain version's bit for bit (``torch.equal``; ``exact``), so
+the same run holds either checkout's kernels to exactness; a backward
+site records whether its LAF cotangent is the same from run to run
+(``deterministic``) and, where the checkout has the replay of its
+kernel's order (``ops.patches.laf_cotangent_replay``), equals it
+(``exact``).  Prints one JSON line (the card's name and power limit in
+it).
 Needs a CUDA card; imports torch, numpy and the standard library only.
 """
 
@@ -70,6 +80,7 @@ def measure(root: str, seed: int) -> dict:
     from affnet_tpu_torch.models import AffNetFast
     from affnet_tpu_torch.models.cnn import init_params
     from affnet_tpu_torch.ops import cuda_patches, cuda_topk
+    from affnet_tpu_torch.ops import patches as patches_mod
     from affnet_tpu_torch.ops.nms import M_CAND, ROW_S, masked_topk
     from affnet_tpu_torch.ops.patches import (
         batched_tables, extract_patches_from_flat_pyramid)
@@ -81,12 +92,27 @@ def measure(root: str, seed: int) -> dict:
     H, W = cs.H, cs.W
     img = torch.from_numpy(cs.make_images(seed, 1)[0]).to(device)
     aff, desc = cs.pretrained_nets()
-    ms, exact = {}, {}
+    ms, exact, deterministic = {}, {}, {}
 
     def time_site(name, fn, plain):
         exact[name] = all(torch.equal(a, b) for a, b in zip(
             *(x if isinstance(x, tuple) else (x,) for x in (fn(), plain()))))
         ms[name] = cs.time_ms(fn, REPS)
+
+    def bwd_sites(name, launch_bwd, buf, lafs, tables, g, ps):
+        """The LAF cotangent alone, and with the buffer's."""
+        def laf_only():
+            return launch_bwd(buf, lafs, tables, g, ps, False, False, True)
+
+        got = laf_only()[1]
+        deterministic[name] = torch.equal(got, laf_only()[1])
+        replay = getattr(patches_mod, "laf_cotangent_replay", None)
+        if replay is not None:
+            exact[name] = torch.equal(got, replay(buf, lafs, *tables, g,
+                                                  ps=ps))
+        ms[name] = cs.time_ms(laf_only, REPS)
+        ms[f"{name}_buf"] = cs.time_ms(lambda: launch_bwd(
+            buf, lafs, tables, g, ps, False, True, True), REPS)
 
     def pyramid_sites(det, tag, program=False):
         p = det._plan(H, W)
@@ -172,6 +198,11 @@ def measure(root: str, seed: int) -> dict:
             buf32, lafs32, tab32, 32, False),
             lambda: extract_patches_from_flat_pyramid(
                 buf32, lafs32, *tab32, ps=32))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        g32 = 2 * torch.rand((2 * nb, 32, 32), generator=gen,
+                             device=device) - 1
+        bwd_sites("batched_bwd", cuda_patches.sample_bwd_cuda, buf32,
+                  lafs32, tab32, g32, 32)
 
     # B6: chip_smoke's phase 7 inputs.
     img6, lafs1, lafs2, _ = cs.shape_problem(device)
@@ -187,8 +218,14 @@ def measure(root: str, seed: int) -> dict:
             view.flat, nlafs, tab6, opt.ps, False),
             lambda: extract_patches_from_flat_pyramid(
                 view.flat, nlafs, *tab6, ps=opt.ps))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        g6 = 2 * torch.rand((nlafs.shape[0], opt.ps, opt.ps), generator=gen,
+                            device=device) - 1
+        bwd_sites("pyramid_bwd", cuda_patches.sample_pyramid_bwd_cuda,
+                  view.flat, nlafs, tab6, g6, opt.ps)
     return {"root": root, "device": torch.cuda.get_device_name(0),
-            "smi": smi(), "ms": ms, "exact": exact, "topk_stage": stage}
+            "smi": smi(), "ms": ms, "exact": exact,
+            "deterministic": deterministic, "topk_stage": stage}
 
 
 def compare(other: str, seed: int) -> dict:
@@ -211,8 +248,12 @@ def compare(other: str, seed: int) -> dict:
                        for k in ms[0]}
     return {"other": os.path.abspath(other), "this": HERE, "runs": runs,
             "median_ms": sides,
-            "exact": {k: all(r["exact"][k] for r in runs)
-                      for k in runs[0]["exact"]},
+            "exact": {k: all(r["exact"][k] for r in runs
+                             if k in r["exact"])
+                      for k in set().union(*(r["exact"] for r in runs))},
+            "deterministic": {k: all(r["deterministic"][k] for r in runs
+                                     if k in r.get("deterministic", {}))
+                              for k in runs[1]["deterministic"]},
             "speedup": {k: sides["other"][k] / sides["this"][k]
                         for k in sides["this"]}}
 

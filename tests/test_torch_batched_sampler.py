@@ -17,7 +17,8 @@ from affnet_tpu.ops.pallas_patches import extract_patches_batched_pallas
 from affnet_tpu.ops.patches import _extract_patches_batched_xla
 from affnet_tpu_torch.ops import batched_sampler, cuda_patches
 from affnet_tpu_torch.ops.patches import (batched_tables,
-                                          extract_patches_batched)
+                                          extract_patches_batched,
+                                          laf_cotangent_replay)
 
 
 def _inputs(seed, n=12, h=64, pert=0.15):
@@ -81,6 +82,44 @@ def test_cotangents_match_jax_grad(ps, align, pert):
                                rtol=5e-4, atol=2e-3)
     np.testing.assert_allclose(t_imgs.grad.numpy(), np.asarray(gj_i),
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("ps,align,pert", [(32, False, 0.15),
+                                           (64, False, 0.15),
+                                           (32, True, 0.15),
+                                           (32, False, 1.5),
+                                           (65, True, 0.15)])
+def test_laf_cotangent_replay_matches_autograd_and_jax(ps, align, pert):
+    """The replay of the backward kernel's order (``laf_cotangent_replay``)
+    computes the LAF cotangent: within rtol 1e-4 / atol 1e-4 of its largest
+    magnitude of autograd's plain cotangent (the kernel tests' bound:
+    another summation order), and within the JAX test's rtol 5e-4 / atol
+    2e-3 of ``jax.grad``, on test_cotangents_match_jax_grad's cases (PS 65:
+    the generic instance's order)."""
+    imgs, lafs, rng, _ = _inputs(10 * ps + align, pert=pert)
+    n = imgs.shape[0]
+    g = rng.uniform(-1, 1, (n, ps, ps)).astype(np.float32)
+
+    def loss_j(l):
+        return (_extract_patches_batched_xla(jnp.asarray(imgs), l, ps=ps,
+                                             align_corners=align)
+                * jnp.asarray(g)).sum()
+
+    gj_l = np.asarray(jax.grad(loss_j)(jnp.asarray(lafs)))
+    t_lafs = torch.from_numpy(lafs).requires_grad_(True)
+    out = extract_patches_batched(torch.from_numpy(imgs), t_lafs, ps=ps,
+                                  align_corners=align)
+    (out * torch.from_numpy(g)).sum().backward()
+    ref = t_lafs.grad
+    tables = batched_tables(n, imgs.shape[1], imgs.shape[2], "cpu")
+    got = laf_cotangent_replay(
+        torch.from_numpy(imgs).reshape(-1, imgs.shape[2]),
+        torch.from_numpy(lafs), *tables, torch.from_numpy(g), ps=ps,
+        align_corners=align)
+    assert got.shape == (n, 2, 3) and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+    np.testing.assert_allclose(got.numpy(), gj_l, rtol=5e-4, atol=2e-3)
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -12,6 +12,7 @@ layout test's own atol 5e-6 (tests/test_models.py
 ``test_eval_conv_layout_parity``)."""
 
 import contextlib
+import itertools
 import os
 import subprocess
 import sys
@@ -29,7 +30,8 @@ from affnet_tpu_torch.models import cnn, params_from_jax, zoo
 from affnet_tpu_torch.ops import launch_counts
 from affnet_tpu_torch.ops.conv_flat import (ACTIVATIONS, conv_flat_plain,
                                             conv_layer_plain)
-from affnet_tpu_torch.ops.cuda_conv import conv_flat, pack_weights
+from affnet_tpu_torch.ops.cuda_conv import (b7_takes, conv_flat,
+                                            conv_flat_cuda, pack_weights)
 
 # (C_pad, C, O, k, pad, H): the layers the flat stack puts through B7 --
 # AffNetFast's and OriNetFast32's six trunk convs (stride-2 layers run at
@@ -350,6 +352,118 @@ def test_flat_stack_launch_plan():
                 assert [c[4] for c in calls] == [1, 1, 2, 1, 2, 1]
     finally:
         cnn.conv_flat = orig
+
+
+# Small nets with a middle layer that B7 does not take, between layers it
+# does: (kernel, pad) of the middle 16 -> 16 layer.
+ODD_LAYERS = {"k5": (5, 2), "k7p1": (7, 1)}
+
+
+def _odd_nets(name, seed=3):
+    """The same net in both packages: 3x3 1->16, BN, ReLU; the middle
+    layer, BN, ReLU; 3x3 16->32 at stride 2, BN, ReLU; global average."""
+    k, pad = ODD_LAYERS[name]
+    spec = (jcnn.Conv(1, 16, 3, 1, 1), jcnn.BN(16), jcnn.ReLU(),
+            jcnn.Conv(16, 16, k, 1, pad), jcnn.BN(16), jcnn.ReLU(),
+            jcnn.Conv(16, 32, 3, 2, 1), jcnn.BN(32), jcnn.ReLU(),
+            jcnn.AvgPoolGlobal())
+    jnet = jzoo.PatchNet(name, spec, 32)
+    params = _jax_params(jnet, seed)
+    nn = torch.nn
+    net = zoo.PatchNet([
+        nn.Conv2d(1, 16, 3, 1, 1, bias=False), cnn.batch_norm(16), nn.ReLU(),
+        nn.Conv2d(16, 16, k, 1, pad, bias=False), cnn.batch_norm(16),
+        nn.ReLU(),
+        nn.Conv2d(16, 32, 3, 2, 1, bias=False), cnn.batch_norm(32),
+        nn.ReLU(), nn.AdaptiveAvgPool2d(1)])
+    net.load_state_dict(params_from_jax(params))
+    return jnet, params, net
+
+
+@pytest.mark.parametrize("name", sorted(ODD_LAYERS))
+def test_flat_stack_stops_at_layers_b7_does_not_take(name):
+    """A 5x5 layer and a 7x7 layer at pad 1 are outside B7's contract
+    (``b7_takes``): the flat stack puts the first layer through
+    ``conv_flat`` (the spy of test_flat_stack_launch_plan) and hands the
+    middle layer and the rest to the stock layers.  The output is held
+    within the flat nets' atol 5e-6 to JAX's flat layout for the 5x5
+    layer (JAX's conv_flat takes any kernel size).  For the 7x7 pad-1
+    layer JAX's flat layout is no reference: it crops only pad-0 layers,
+    so it keeps that layer's output at the map's full extent (measured:
+    3e-2 off its own stock layout); the port is held to JAX's stock
+    layout there, which JAX's tests hold its flat layout to, and to its
+    own nchw layout, at the same atol."""
+    k, pad = ODD_LAYERS[name]
+    assert b7_takes(1, 16, 3, 1, 1, 32, 32)
+    assert not b7_takes(16, 16, k, pad, 1, 32, 32)
+    assert not b7_takes(16, 16, k, pad, 1, 32, 32, torch.bfloat16)
+    jnet, params, net = _odd_nets(name)
+    patches = np.random.RandomState(1).rand(6, 32, 32).astype(np.float32)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    calls = []
+    orig = cnn.conv_flat
+
+    def spy(x, w, bias, img_hw, pad, act, stride, use_kernel=True):
+        calls.append((tuple(w.shape), img_hw, pad, act, stride))
+        return orig(x, w, bias, img_hw, pad, act, stride,
+                    use_kernel=use_kernel)
+
+    try:
+        cnn.conv_flat = spy
+        with _layout("flat"), torch.no_grad():
+            got = net(torch.from_numpy(patches)).numpy()
+            ref_flat = np.asarray(jnet(jp, jnp.asarray(patches)))
+    finally:
+        cnn.conv_flat = orig
+    assert calls == [((3, 3, 1, 16), (32, 32), 1, "relu", 1)]
+    with _layout("nchw"), torch.no_grad():
+        nchw = net(torch.from_numpy(patches)).numpy()
+        ref_stock = np.asarray(jnet(jp, jnp.asarray(patches)))
+    assert got.shape == ref_stock.shape == (6, 32)
+    np.testing.assert_allclose(got, nchw, atol=5e-6)
+    np.testing.assert_allclose(got, ref_stock, atol=5e-6)
+    if name == "k5":
+        np.testing.assert_allclose(got, ref_flat, atol=5e-6)
+    else:
+        assert np.abs(ref_flat - ref_stock).max() > 1e-3
+
+
+def test_b7_takes_agrees_with_conv_flat_cuda():
+    """``conv_flat_cuda`` refuses, before it needs a card, exactly the
+    layers ``b7_takes`` refuses, over a grid of kernel sizes, pads,
+    strides, channels, map sizes and both dtypes; what it takes goes on to
+    the device check (a CPU tensor is refused there).  Among the refusals:
+    kernel sizes other than 3 and 7, a pad other than 0 or (k-1)/2, a
+    float32 map over 512 threads' rows (66x66), the outputs that cannot
+    halve under it (24 outputs on 40x40), and bf16 maps past the 227 KB of
+    shared memory (64 channels of 7x7 on 32x32).  On the card,
+    tests/test_torch_cuda.py holds ``b7_takes`` to the launcher itself."""
+    takes = refused = 0
+    for k, pad, stride, c, o, hw, dt in itertools.product(
+            (3, 5, 7), (0, 1, 2, 3), (1, 2), (1, 16, 64), (8, 24, 64),
+            (8, 16, 32, 40, 66), (torch.float32, torch.bfloat16)):
+        if 2 * pad > k - 1 or k > hw + 2 * pad:
+            continue                   # outside the plain contract too
+        x = torch.zeros((c, hw * hw), dtype=dt)
+        w = torch.zeros((k, k, c, o))
+        ok = b7_takes(c, o, k, pad, stride, hw, hw, dt)
+        with pytest.raises(ValueError) as err:
+            conv_flat_cuda(x, w, None, (hw, hw), pad, "relu", stride)
+        if ok:
+            assert "CUDA tensor" in str(err.value), (k, pad, stride, c, o,
+                                                     hw, dt)
+            takes += 1
+        else:
+            assert "B7 does not take" in str(err.value)
+            refused += 1
+    assert takes > 100 and refused > 100
+    assert not b7_takes(16, 16, 3, 1, 1, 66, 66)
+    assert b7_takes(16, 16, 3, 1, 1, 64, 64)
+    assert not b7_takes(16, 24, 3, 1, 1, 40, 40)
+    assert b7_takes(16, 32, 3, 1, 1, 40, 40)
+    assert not b7_takes(64, 64, 7, 3, 1, 32, 32, torch.bfloat16)
+    assert b7_takes(64, 64, 7, 3, 1, 32, 32)
+    assert b7_takes(64, 64, 3, 1, 1, 32, 32, torch.bfloat16)
 
 
 def test_apply_flat_feeds_each_layer_its_real_channels():

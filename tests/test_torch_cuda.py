@@ -6,24 +6,30 @@ run these there without the repository's conftest (which imports JAX):
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import itertools
+import os
+
 import numpy as np
 import pytest
 import torch
-
-import os
 
 from affnet_tpu_torch import load_pretrained
 from affnet_tpu_torch.cli import hesaffnet
 from affnet_tpu_torch.detector import (DetectorConfig,
                                        ScaleSpaceAffinePatchExtractor)
 from affnet_tpu_torch.models import (AffNetFast, HardTFeatNet, OriNetFast32,
-                                     cnn, params_from_jax)
+                                     cnn, params_from_jax, zoo)
 from affnet_tpu_torch.ops import (batched_sampler, cuda_blur, cuda_conv,
                                   cuda_detect, cuda_patches, cuda_topk)
-from affnet_tpu_torch.ops.conv_flat import conv_layer_plain
+from affnet_tpu_torch.kernels.build import launch, stream_of
+from affnet_tpu_torch.models.cnn import init_params
+from affnet_tpu_torch.ops.conv_flat import (ACTIVATIONS, conv_layer_plain,
+                                            out_extent)
 from affnet_tpu_torch.utils import float32_math
-from affnet_tpu_torch.ops.patches import (extract_patches_batched,
-                                          extract_patches_from_flat_pyramid)
+from affnet_tpu_torch.ops.patches import (batched_tables,
+                                          extract_patches_batched,
+                                          extract_patches_from_flat_pyramid,
+                                          laf_cotangent_replay)
 from affnet_tpu_torch.ops.pyramid_sampler import make_pyramid_sampler_diff
 from affnet_tpu_torch.ops import launch_counts
 from affnet_tpu_torch.ops.scalespace import (build_flat_pyramid,
@@ -320,7 +326,8 @@ def test_batched_backward_kernel(dev, ps, align, pert):
     """B5 backward against autograd of the plain version: LAF cotangent
     rtol 1e-4 / atol 1e-4 of its largest magnitude (another summation
     order), image cotangent rtol 1e-5 / atol 1e-5 (atomics).  The LAF
-    cotangent is the same from run to run."""
+    cotangent equals the replay of the kernel's order bit for bit, and so
+    is the same from run to run."""
     imgs, lafs = _batched_inputs(dev, pert=pert)
     g = 2 * torch.rand((imgs.shape[0], ps, ps), device=dev) - 1
 
@@ -339,6 +346,10 @@ def test_batched_backward_kernel(dev, ps, align, pert):
     torch.testing.assert_close(gl, rl, rtol=1e-4,
                                atol=1e-4 * float(rl.abs().max()))
     torch.testing.assert_close(gi, ri, rtol=1e-5, atol=1e-5)
+    n, h, w = imgs.shape
+    assert torch.equal(gl, laf_cotangent_replay(
+        imgs.reshape(n * h, w), lafs, *batched_tables(n, h, w, dev), g,
+        ps=ps, align_corners=align))
     _, gl2 = grads(lambda im, lf: batched_sampler.sample_batched(
         im, lf, ps=ps, align_corners=align))
     assert torch.equal(gl, gl2)
@@ -353,6 +364,32 @@ def test_batched_backward_only_what_is_needed(dev):
     im = imgs.clone().requires_grad_(True)
     batched_sampler.sample_batched(im, lafs).sum().backward()
     assert torch.isfinite(im.grad).all()
+
+
+@pytest.mark.parametrize("ps", [32, 65])
+def test_backward_laf_route_writes_no_buffer(dev, ps):
+    """The LAF-only route gets no buffer cotangent to write (a null
+    pointer: a write would fault at the synchronize), allocates none and
+    leaves its inputs as they were; its result is the LAF cotangent of the
+    route that also writes the buffer's."""
+    imgs, lafs = _batched_inputs(dev, pert=1.5)
+    n, h, w = imgs.shape
+    buf = imgs.reshape(n * h, w)
+    tables = batched_tables(n, h, w, dev)
+    g = 2 * torch.rand((n, ps, ps), device=dev) - 1
+    copies = [t.clone() for t in (buf, lafs, g)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    gb, gl = cuda_patches.sample_bwd_cuda(buf, lafs, tables, g, ps, False,
+                                          False, True)
+    torch.cuda.synchronize()
+    assert gb is None
+    assert torch.cuda.max_memory_allocated() - before < buf.numel() * 4
+    assert all(torch.equal(a, b) for a, b in zip((buf, lafs, g), copies))
+    gb2, gl2 = cuda_patches.sample_bwd_cuda(buf, lafs, tables, g, ps, False,
+                                            True, True)
+    assert torch.equal(gl, gl2) and float(gb2.abs().sum()) > 0
 
 
 def test_batched_backward_nonfinite_lafs_write_nothing(dev):
@@ -421,7 +458,8 @@ def test_pyramid_backward_kernel(dev, ps, align, scale):
     forward used: LAF cotangent rtol 1e-4 / atol 1e-4 of its largest
     magnitude (another summation order), buffer cotangent rtol 1e-5 / atol
     1e-5 of its largest magnitude (atomics, many samples per pixel).  The
-    LAF cotangent is the same from run to run."""
+    LAF cotangent equals the replay of the kernel's order bit for bit, and
+    so is the same from run to run."""
     buf, tables, lafs, lvl = _pyramid_inputs(dev, scale=scale)
     g = 2 * torch.rand((lafs.shape[0], ps, ps), device=dev) - 1
 
@@ -441,6 +479,8 @@ def test_pyramid_backward_kernel(dev, ps, align, scale):
                                atol=1e-4 * float(rl.abs().max()))
     torch.testing.assert_close(gb, rb, rtol=1e-5,
                                atol=1e-5 * float(rb.abs().max()))
+    assert torch.equal(gl, laf_cotangent_replay(buf, lafs, lvl, *tables, g,
+                                                ps=ps, align_corners=align))
     _, gl2 = grads(lambda b, lf: sample(b, lf, lvl))
     assert torch.equal(gl, gl2)
 
@@ -599,6 +639,65 @@ def test_flat_nets_kernel_vs_plain(dev, cls, name, launch_count):
         assert cuda_conv.launches == before + launch_count
         ref = net.feature_vectors(p, use_kernels=False)
         assert cuda_conv.launches == before + launch_count
+    with cnn.eval_layout("nchw"), torch.inference_mode(), float32_math():
+        nchw = net.feature_vectors(p)
+    torch.testing.assert_close(flat_feats, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(flat_feats, nchw, rtol=1e-4, atol=1e-4)
+
+
+def test_b7_takes_matches_the_launcher(dev):
+    """``cuda_conv.b7_takes`` against ``launch_conv_flat`` itself (called
+    as ``conv_flat_cuda`` calls it, past the wrapper's own check): the
+    launcher refuses a layer exactly when ``b7_takes`` does, over
+    tests/test_torch_conv.py's grid of kernel sizes, pads, strides,
+    channels, map sizes and both dtypes."""
+    for k, pad, stride, c, o, hw, dt in itertools.product(
+            (3, 5, 7), (0, 1, 2, 3), (1, 2), (1, 16, 64), (8, 24, 64),
+            (8, 16, 32, 40, 66), (torch.float32, torch.bfloat16)):
+        if 2 * pad > k - 1 or k > hw + 2 * pad:
+            continue
+        x = torch.zeros((c, hw * hw), dtype=dt, device=dev)
+        wk = cuda_conv.pack_weights(torch.zeros((k, k, c, o), device=dev),
+                                    dt)
+        b = torch.zeros((o,), device=dev)
+        ho, wo = out_extent((hw, hw), k, pad, stride)
+        out = torch.empty((o, ho * wo), dtype=dt, device=dev)
+        try:
+            launch("launch_conv_flat", x.data_ptr(), wk.data_ptr(),
+                   b.data_ptr(), out.data_ptr(), c, o, 1, hw, hw, k, stride,
+                   pad, ACTIVATIONS.index("relu"),
+                   int(dt == torch.bfloat16), stream_of(x))
+            launched = True
+        except RuntimeError:
+            launched = False
+        assert launched == cuda_conv.b7_takes(c, o, k, pad, stride, hw, hw,
+                                              dt), (k, pad, stride, c, o,
+                                                    hw, dt)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k,pad", [(5, 2), (7, 1)])
+def test_flat_net_routes_around_b7_on_card(dev, k, pad):
+    """A net whose middle layer B7 does not take (5x5; 7x7 at pad 1) under
+    the flat layout on the card: one B7 launch (the first layer), no
+    failed launch, the features within 1e-5 of the plain path's and 1e-4
+    of the nchw layout's, as test_flat_nets_kernel_vs_plain holds the
+    zoo's nets."""
+    nn = torch.nn
+    net = init_params(zoo.PatchNet([
+        nn.Conv2d(1, 16, 3, 1, 1, bias=False), cnn.batch_norm(16), nn.ReLU(),
+        nn.Conv2d(16, 16, k, 1, pad, bias=False), cnn.batch_norm(16),
+        nn.ReLU(),
+        nn.Conv2d(16, 32, 3, 2, 1, bias=False), cnn.batch_norm(32),
+        nn.ReLU(), nn.AdaptiveAvgPool2d(1)]),
+        torch.Generator().manual_seed(k)).to(dev).eval()
+    p = torch.rand((300, 32, 32), device=dev)
+    with cnn.eval_layout("flat"), torch.inference_mode(), float32_math():
+        before = cuda_conv.launches
+        flat_feats = net.feature_vectors(p)
+        torch.cuda.synchronize()
+        assert cuda_conv.launches == before + 1
+        ref = net.feature_vectors(p, use_kernels=False)
     with cnn.eval_layout("nchw"), torch.inference_mode(), float32_math():
         nchw = net.feature_vectors(p)
     torch.testing.assert_close(flat_feats, ref, rtol=1e-5, atol=1e-5)

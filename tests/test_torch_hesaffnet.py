@@ -211,7 +211,94 @@ def test_cli_matches_jax_cli(tmp_path, capsys):
                                atol=1e-6)
 
 
-def test_cli_refuses_mesh(tmp_path):
-    with pytest.raises(SystemExit, match="mesh"):
-        hesaffnet.main(["a.png", str(tmp_path / "o.txt"), "--mesh", "4",
-                        "--device", "cpu"])
+def _mesh_images(tmp_path, n=2, shapes=None):
+    """PNGs of the 120x160 ``detector_golden.npz`` image and its mirror
+    (two same-shape inputs), or of crops of the image to ``shapes``."""
+    from PIL import Image
+    img = np.clip(_img("detector_golden"), 0, 255).astype(np.uint8)
+    ims = ([img[:h, :w] for h, w in shapes] if shapes
+           else [img, img[:, ::-1]][:n])
+    paths = []
+    for i, im in enumerate(ims):
+        paths.append(str(tmp_path / f"img{i}.png"))
+        Image.fromarray(np.ascontiguousarray(im)).save(paths[-1])
+    return paths
+
+
+def _assert_same_regions(got, ref, max_flips=2):
+    """test_cli_matches_jax_cli's allowances: the same regions up to
+    ``max_flips`` gate flips each side, matched by their centres (1e-2
+    px), shapes within rtol 1e-2."""
+    d = np.abs(got[:, None, :2] - ref[None, :, :2]).max(-1)
+    gi, ri = np.nonzero(d < 1e-2)
+    assert len(set(gi)) == len(gi) and len(set(ri)) == len(ri)
+    assert len(got) - len(gi) <= max_flips
+    assert len(ref) - len(ri) <= max_flips
+    np.testing.assert_allclose(got[gi, 2:], ref[ri, 2:], rtol=1e-2,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("cap", [16384, 64])
+def test_cli_mesh_matches_jax_mesh(tmp_path, capsys, cap):
+    """``--mesh 2`` on two same-shape images: one file per image, each
+    holding what JAX's ``--mesh 2`` file holds (JAX on the 8-device CPU
+    mesh of tests/conftest.py).  At cap 64 the cap binds (the images have
+    about 120 survivors past the gate): both keep the 64 strongest
+    survivors' gated regions, in descending response order."""
+    paths = _mesh_images(tmp_path)
+    ours, theirs = str(tmp_path / "ours.txt"), str(tmp_path / "theirs.txt")
+    flags = ["--do-ori", "--mesh", "2", "--max-keypoints", str(cap)]
+    hesaffnet.main([",".join(paths), ours, "--device", "cpu", *flags])
+    printed = capsys.readouterr().out.splitlines()
+    with jax.default_device(jax.devices("cpu")[0]):
+        jcli.main([",".join(paths), theirs, *flags])
+    det = hesaffnet.make_extractor(max_keypoints=cap, do_ori=True,
+                                   device="cpu")
+    for i, path in enumerate(paths):
+        got = io_formats.read_ells(str(tmp_path / f"ours_{i}.txt"))
+        ref = jio.read_ells(str(tmp_path / f"theirs_{i}.txt"))
+        assert printed[i] == (f"{len(got)} affine regions -> "
+                              f"{tmp_path / f'ours_{i}.txt'}")
+        _assert_same_regions(got, ref)
+        out = det(hesaffnet.load_gray(path), do_ori=True, capped=True)
+        assert len(out["resp"]) == len(got) <= cap
+        assert np.all(np.diff(out["resp"]) <= 0)
+        if cap == 64:
+            full = det(hesaffnet.load_gray(path), do_ori=True)
+            assert full["n_detected"] > cap and len(full["resp"]) > cap
+            # The capped set: the gated survivors among the 64 strongest.
+            top = np.sort(full["resp"])[::-1]
+            assert np.all(np.isin(out["orig_idx"], full["orig_idx"]))
+            assert out["resp"].min() >= top[min(cap, len(top)) - 1] - 0.1
+
+
+def test_cli_mixed_sizes_and_first_image(tmp_path, capsys):
+    """``--mesh`` refuses images of different sizes, naming them, as JAX
+    does; a comma list without ``--mesh`` runs the first image only, as a
+    call on that image alone does (the same bytes)."""
+    mixed = _mesh_images(tmp_path, shapes=[(120, 160), (100, 160)])
+    out = str(tmp_path / "o.txt")
+    with pytest.raises(SystemExit, match=r"2 distinct sizes \[\(100, 160\), "
+                       r"\(120, 160\)\]"):
+        hesaffnet.main([",".join(mixed), out, "--mesh", "2", "--device",
+                        "cpu"])
+    with jax.default_device(jax.devices("cpu")[0]):
+        with pytest.raises(SystemExit, match="2 distinct sizes"):
+            jcli.main([",".join(mixed), out, "--mesh", "2"])
+    paths = _mesh_images(tmp_path)
+    first, alone = str(tmp_path / "first.txt"), str(tmp_path / "alone.txt")
+    hesaffnet.main([",".join(paths), first, "--device", "cpu",
+                    "--max-keypoints", "64"])
+    hesaffnet.main([paths[0], alone, "--device", "cpu",
+                    "--max-keypoints", "64"])
+    printed = capsys.readouterr().out.splitlines()
+    assert printed[0].endswith(f"-> {first}") and len(printed) == 2
+    assert not os.path.exists(str(tmp_path / "first_0.txt"))
+    with open(first, "rb") as a, open(alone, "rb") as b:
+        assert a.read() == b.read()
+    # One image with --mesh is the single-image run too.
+    one = str(tmp_path / "one.txt")
+    hesaffnet.main([paths[0], one, "--device", "cpu", "--mesh", "4",
+                    "--max-keypoints", "64"])
+    with open(one, "rb") as a, open(alone, "rb") as b:
+        assert a.read() == b.read()

@@ -21,6 +21,7 @@ from affnet_tpu.models.sift import sift_describe as jsift
 from affnet_tpu.ops.pallas_patches import make_pyramid_sampler_diff as jdiff
 from affnet_tpu_torch import laf, losses, reproj, shape_opt
 from affnet_tpu_torch.models.sift import sift_describe
+from affnet_tpu_torch.ops.patches import laf_cotangent_replay
 from affnet_tpu_torch.ops.pyramid_sampler import make_pyramid_sampler_diff
 from test_torch_patches import _fake_pyramid, _random_lafs
 
@@ -164,6 +165,40 @@ def test_pyramid_sampler_plain_matches_jax(ps, align):
     np.testing.assert_allclose(lf.grad.numpy(), np.asarray(jg[1]),
                                rtol=5e-4, atol=2e-3)
     assert not lv.requires_grad and lv.grad is None
+
+
+@pytest.mark.parametrize("ps,align", [(19, False), (32, False), (32, True)])
+def test_pyramid_laf_cotangent_replay_matches_autograd_and_jax(ps, align):
+    """The replay of B6 backward's order (``laf_cotangent_replay``, on the
+    pyramid's table and the forward's levels) on
+    test_pyramid_sampler_plain_matches_jax's inputs: within rtol 1e-4 /
+    atol 1e-4 of its largest magnitude of autograd's plain LAF cotangent
+    (the kernel tests' bound: another summation order) and within the JAX
+    tolerance rtol 5e-4 / atol 2e-3 of JAX's custom VJP."""
+    rng = np.random.RandomState(21)
+    buf, offs, hs, ws = _fake_pyramid(rng, [(96, 128), (48, 64)])
+    n = 16
+    lafs = _random_lafs(rng, n, (0.05, 0.2))
+    lvl = rng.randint(0, 2, n).astype(np.int32)
+    wgt = rng.uniform(-1, 1, (n, ps, ps)).astype(np.float32)
+    sampler = jdiff(jnp.asarray(offs), jnp.asarray(hs), jnp.asarray(ws), ps,
+                    align)
+    with jax.default_device(jax.devices("cpu")[0]):
+        jg = np.asarray(jax.grad(lambda l: (sampler(
+            jnp.asarray(buf), l, jnp.asarray(lvl.astype(np.float32)))
+            * wgt).sum())(jnp.asarray(lafs)))
+    tabs = [torch.from_numpy(a) for a in (offs, hs, ws)]
+    sample = make_pyramid_sampler_diff(*tabs, ps, align)
+    lf = torch.from_numpy(lafs).requires_grad_(True)
+    (sample(torch.from_numpy(buf), lf, torch.from_numpy(lvl))
+     * torch.from_numpy(wgt)).sum().backward()
+    got = laf_cotangent_replay(torch.from_numpy(buf), torch.from_numpy(lafs),
+                               torch.from_numpy(lvl), *tabs,
+                               torch.from_numpy(wgt), ps=ps,
+                               align_corners=align)
+    torch.testing.assert_close(got, lf.grad, rtol=1e-4,
+                               atol=1e-4 * float(lf.grad.abs().max()))
+    np.testing.assert_allclose(got.numpy(), jg, rtol=5e-4, atol=2e-3)
 
 
 def test_pyramid_sampler_plain_laf_cotangent_only():
