@@ -63,3 +63,9 @@ def load_params_npz(path: str) -> Dict[str, Any]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = np.asarray(data[key])
     return tree
+
+
+# The extractors (imported last: their modules use the helpers above).
+from .detector import (DetectorConfig,  # noqa: E402, F401
+                       ScaleSpaceAffinePatchExtractor)
+from .onepass import OnePassSIR  # noqa: E402, F401

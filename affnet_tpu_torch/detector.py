@@ -30,8 +30,11 @@ order.
 
 ``do_ori`` runs the orientation stage at the "ori" patch site (B4, or
 B4-bf16 in fast mode): the orientation net's rotation composes with each
-shape on the right.  The handcrafted shape and orientation estimators are
-not ported: the extractor needs the nets for those stages.
+shape on the right.  Without a shape net the shape stage runs the
+handcrafted Baumberg step, and without an orientation net the orientation
+stage the handcrafted dominant gradient orientation, both at PS 19
+(``models/handcrafted.py``), as the JAX extractor does; they stay float32
+in fast mode, where B4-bf16 still samples their patches.
 
 ``fast=True`` is the JAX package's fast mode, which its flagship runs: the
 shape and descriptor nets run their activation chains in bf16
@@ -56,6 +59,7 @@ from torch import nn
 from . import resolve_device
 from .laf import (check_touch_boundary, denormalize_lafs, eig2x2_vals,
                   sc_y_x_to_lafs)
+from .models.handcrafted import AffineShapeEstimator, OrientationDetector
 from .ops.cuda_detect import (RefineTables, dedup, detect_stencil,
                                n_counters, refine)
 from .ops.cuda_patches import extract_patches_pyramid
@@ -148,6 +152,10 @@ class _Plan:
         n_centers = plan.levels_per_octave - 2
         self.octaves = [(det_offsets[o * n_centers], h * w)
                         for o, (h, w) in enumerate(plan.octave_shapes)]
+        # Per octave: its first pixel among all octaves' pixels (the
+        # OnePassSIR shape fields).
+        sizes = [h * w for h, w in plan.octave_shapes]
+        self.field_offsets = dev(np.cumsum([0] + sizes[:-1]), torch.int64)
         self.border = border
         self._device = device
         self._border_masks = None
@@ -171,10 +179,12 @@ class ScaleSpaceAffinePatchExtractor:
 
     ``shape_net``, ``ori_net`` and ``desc_net`` are ``nn.Module``s on
     (N, PS, PS) patches (models/zoo.py), moved to ``device``; with
-    ``config.fast`` the extractor keeps bf16 copies of them
-    (``with_dtype``).  ``use_kernels=False`` runs every stage through the
-    kernels' plain versions, on any device (the nets too, under the flat
-    layout): it is the yardstick the kernels are held against.
+    ``config.fast`` the extractor keeps bf16 copies of the nets that have
+    ``with_dtype``.  ``shape_net`` and ``ori_net`` default to the
+    handcrafted estimators at PS 19.  ``use_kernels=False`` runs every
+    stage through the kernels' plain versions, on any device (the nets
+    too, under the flat layout): it is the yardstick the kernels are held
+    against.
     """
 
     def __init__(self, config: DetectorConfig = DetectorConfig(),
@@ -182,9 +192,6 @@ class ScaleSpaceAffinePatchExtractor:
                  desc_net: Optional[nn.Module] = None,
                  device="cuda", use_kernels: bool = True,
                  ori_net: Optional[nn.Module] = None):
-        if config.num_baum_iters > 0 and shape_net is None:
-            raise ValueError("num_baum_iters > 0 needs a shape_net (the "
-                             "handcrafted estimator is not ported yet)")
         self.cfg = config
         self.device = resolve_device(device)
 
@@ -195,8 +202,10 @@ class ScaleSpaceAffinePatchExtractor:
                 net = net.with_dtype(torch.bfloat16)
             return net.to(self.device).eval()
 
-        self.shape_net = prepare(shape_net)
-        self.ori_net = prepare(ori_net)
+        self.shape_net = prepare(shape_net if shape_net is not None
+                                 else AffineShapeEstimator(19))
+        self.ori_net = prepare(ori_net if ori_net is not None
+                               else OrientationDetector(19))
         self.desc_net = prepare(desc_net)
         self.use_kernels = use_kernels
         self._plans: Dict[Tuple[int, int], _Plan] = {}
@@ -375,9 +384,6 @@ class ScaleSpaceAffinePatchExtractor:
         ``capped``: threshold mode keeps the ``max_keypoints`` strongest
         survivors (module docstring)."""
         cfg = self.cfg
-        if do_ori and self.ori_net is None:
-            raise ValueError("do_ori needs an ori_net (the handcrafted "
-                             "orientation estimator is not ported yet)")
         h, w = img.shape
         p = self._plan(h, w)
         cand = self._multiscale_detect(img, p, capped)

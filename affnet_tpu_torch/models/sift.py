@@ -4,7 +4,8 @@ shape-optimization demo.
 Counterpart of ``affnet_tpu/models/sift.py``: gradients -> 8 soft-assigned
 angular bins -> 4x4 spatial pooling with a triangular kernel -> L2 / clip
 0.2 / L2.  The pooling is a grouped ``F.conv2d``, a plain convolution that
-the JAX package also leaves to its compiler.
+the JAX package also leaves to its compiler.  :class:`SIFTNet` wraps it as
+a patch net for the extractor's descriptor stage.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from .cnn import l2norm
 
@@ -99,3 +101,21 @@ def sift_describe(patches: Tensor, patch_size: int = 65,
     flat = l2norm(pooled.reshape(pooled.shape[0], -1))
     flat = torch.clamp(flat, 0.0, clipval)
     return l2norm(flat)
+
+
+class SIFTNet(nn.Module):
+    """:func:`sift_describe` as a patch net: (N, PS, PS) -> (N, 128) for the
+    default bins, with ``.ps``; weight-free, ``use_kernels`` changes
+    nothing."""
+
+    def __init__(self, patch_size: int = 65, num_ang_bins: int = 8,
+                 num_spatial_bins: int = 4, clipval: float = 0.2):
+        super().__init__()
+        self.ps = patch_size
+        self.num_ang_bins = num_ang_bins
+        self.num_spatial_bins = num_spatial_bins
+        self.clipval = clipval
+
+    def forward(self, patches: Tensor, use_kernels: bool = True) -> Tensor:
+        return sift_describe(patches, self.ps, self.num_ang_bins,
+                             self.num_spatial_bins, self.clipval)

@@ -112,6 +112,25 @@ Phases, each timed and each fatal on failure:
                in float32 and fast mode: 7 B7 (B7-bf16) launches per image,
                keypoints against the nchw runs counted, ms per image beside
                nchw's.
+ 13. hesaffbaum — the classical Hessian-Affine program (top-k 2000, 16
+               handcrafted Baumberg iterations at PS 19): the reference's
+               120x160 golden on the card; B4's generic instance at PS 19
+               bit-identical to its plain version at each of the 16
+               iterations of one image (per-launch device ms, bound, plain
+               and F.grid_sample times); the program's main on the images
+               (.npy): 16 B4 and 1 B3 launches per image, keypoints
+               identical to the plain path on the card, ms per image.
+ 14. onepass — the OnePassSIR program (dense AffNet shape fields, the 3x
+               boundary gate): the reference's 120x160 golden (dense map
+               atol 1e-4, the 50-feature detector); B2's refine at every
+               survivor of one image bit-identical to its plain version
+               (timed); the program's main on the images in top-k mode
+               with SIFT (2000) and in threshold mode (th 28.41,
+               OriNetFast32): launches per image (refine 2 and B3 1 in
+               top-k mode, refine 1 and no B3 in threshold mode, B4 1),
+               keypoints identical to the plain path on the card, survivor
+               counts, ms per image; the dense net's share of the
+               extraction's device time.
 
 Kernel times ("ms") are device times from torch.profiler (CUPTI): the
 card's busy time per call, without the host's launch overhead.  The log
@@ -151,7 +170,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from affnet_tpu_torch import load_pretrained
-from affnet_tpu_torch.cli import hesaffnet, optimize_shapes
+from affnet_tpu_torch.cli import (extract_geom, hesaffbaum, hesaffnet,
+                                  optimize_shapes)
 from affnet_tpu_torch.data import (DevicePairDataset, PairDataset,
                                    synthetic_pairs_from_image)
 from affnet_tpu_torch.detector import (DetectorConfig,
@@ -161,6 +181,8 @@ from affnet_tpu_torch.models import AffNetFast, HardTFeatNet, params_from_jax
 from affnet_tpu_torch.io_formats import read_ells, write_ells
 from affnet_tpu_torch.models import cnn
 from affnet_tpu_torch.models.cnn import init_params
+from affnet_tpu_torch.laf import lafs_to_ells
+from affnet_tpu_torch.models.dense import AffNetFastFullConv, local_norm_2d
 from affnet_tpu_torch.models.zoo import PatchNet
 from affnet_tpu_torch.ops import (EXTRACTION_KERNELS, FAST_EXTRACTION_KERNELS,
                                   cuda_blur, cuda_conv, cuda_detect,
@@ -172,8 +194,10 @@ from affnet_tpu_torch.ops.patches import (base_lin, batched_tables,
                                           extract_patches_batched,
                                           extract_patches_from_flat_pyramid,
                                           laf_cotangent_replay)
+from affnet_tpu_torch.onepass import OnePassSIR
 from affnet_tpu_torch.ops.scalespace import (build_flat_pyramid,
-                                             gauss_kernel_1d, pyramid_steps)
+                                             gauss_kernel_1d, pyramid_steps,
+                                             pyramid_views)
 from affnet_tpu_torch.shape_opt import LAFShapeOptimizer
 from affnet_tpu_torch.train import (TrainConfig, draw_affnet_lafs,
                                     init_state, make_affnet_train_step,
@@ -468,17 +492,23 @@ def check_detect(det, img: torch.Tensor) -> dict:
         library_ms=None, bound_ms=t, bound_by=by, changed=changed)
 
     idxs = det._multiscale_detect(img, p)["orig_idx"]
-    tables = p.refine_tables
+    res["refine"] = check_refine("refine", buf, idxs, p.refine_tables, th)
+    return res
+
+
+def check_refine(name: str, buf, idxs, tables, th: float) -> dict:
+    """B2's refine at ``idxs`` bit-identical to its plain version; timed
+    beside it and its bound (the buffer elements these points read: 5x5
+    at three levels each)."""
     syx = cuda_detect.refine_cuda(buf, idxs, tables, th)
     syx_ref = cuda_detect.refine_plain(buf, idxs, tables, th)
-    require(torch.equal(syx, syx_ref), "refine: not bit-identical")
-    # Buffer elements this run's points read: 5x5 at three levels each.
+    require(torch.equal(syx, syx_ref), f"{name}: not bit-identical")
     d = torch.searchsorted(tables.det_offsets, idxs, right=True) - 1
     lf = tables.ext_levels[d]
     hh, ww = tables.heights[lf].long(), tables.widths[lf].long()
     pix = idxs - tables.det_offsets[d]
     y, x = pix // ww, pix % ww
-    off = torch.arange(-2, 3, device=img.device)
+    off = torch.arange(-2, 3, device=buf.device)
     touched = []
     for k in range(3):
         rows = (tables.row_offsets[lf + k].long()[:, None]
@@ -490,8 +520,8 @@ def check_detect(det, img: torch.Tensor) -> dict:
     n_touched = int(torch.unique(torch.cat(touched)).numel())
     t, by = bound_ms(4 * n_touched + idxs.numel() * (8 + 12),
                      idxs.numel() * (27 * 14 + 80))
-    res["refine"] = dict(
-        name="refine", err=0.0, shape=(idxs.numel(), 3),
+    return dict(
+        name=name, err=0.0, shape=(idxs.numel(), 3),
         ms=time_ms(lambda: cuda_detect.refine_cuda(buf, idxs, tables, th),
                    20),
         event_ms=event_median_ms(lambda: cuda_detect.refine_cuda(
@@ -499,7 +529,6 @@ def check_detect(det, img: torch.Tensor) -> dict:
         plain_ms=time_ms(lambda: cuda_detect.refine_plain(
             buf, idxs, tables, th), 5),
         library_ms=None, bound_ms=t, bound_by=by)
-    return res
 
 
 def topk_pads(resp_all: torch.Tensor, k: int) -> dict:
@@ -594,6 +623,22 @@ def _n_touched(buf, u, v, row0, h, w) -> int:
     return int(torch.unique(torch.cat(touched)).numel())
 
 
+def patch_work(buf, lafs, level, tables, ps, align=False):
+    """The bound of B4's work at one site (its bytes: the in-level corners
+    the samples need, the LAFs and levels, the patches; its operations: 30
+    a sample) and the F.grid_sample grid of the same sample positions over
+    the whole buffer (zero padding at the buffer's edges, not the
+    level's): (bound ms, bound_by, grid)."""
+    u, v, row0, h, w = _sample_positions(lafs, level, *tables, ps, align)
+    n_touched = _n_touched(buf, u, v, row0, h, w)
+    n = lafs.shape[0]
+    t_bytes, by = bound_ms(n_touched * 4 + n * (24 + 4) + n * ps * ps * 4,
+                           30 * n * ps * ps)
+    gxn = (2.0 * u + 1.0) / buf.shape[1] - 1.0
+    gyn = (2.0 * (v + row0) + 1.0) / buf.shape[0] - 1.0
+    return t_bytes, by, torch.stack([gxn, gyn], -1).reshape(1, n * ps, ps, 2)
+
+
 def check_patches(site: str, buf, lafs, level, tables, ps=32,
                   align=False, bf16=False) -> dict:
     """B4 (B4-bf16 with ``bf16``) at one patch site of finite LAFs: equal
@@ -617,17 +662,8 @@ def check_patches(site: str, buf, lafs, level, tables, ps=32,
     err = float((got - ref).abs().max())
     require(torch.equal(got, ref), f"patches{' bf16' if bf16 else ''} "
             f"({site}): not bit-identical, max err {err}")
-    u, v, row0, h, w = _sample_positions(lafs, level, offs, hs, ws, ps,
-                                         align)
-    n_touched = _n_touched(buf, u, v, row0, h, w)
     n = lafs.shape[0]
-    t_bytes, by = bound_ms(n_touched * 4 + n * (24 + 4) + n * ps * ps * 4,
-                           30 * n * ps * ps)
-    # Yardstick: F.grid_sample over the whole buffer at the same sample
-    # positions (zero padding at the buffer's edges, not the level's).
-    gxn = (2.0 * u + 1.0) / buf.shape[1] - 1.0
-    gyn = (2.0 * (v + row0) + 1.0) / buf.shape[0] - 1.0
-    grid = torch.stack([gxn, gyn], -1).reshape(1, n * ps, ps, 2)
+    t_bytes, by, grid = patch_work(buf, lafs, level, tables, ps, align)
     b4 = buf[None, None]
     if bf16:       # the yardstick samples a bf16 buffer (grid_sample wants
         b4, grid = b4.bfloat16(), grid.bfloat16()    # one dtype for both)
@@ -2020,6 +2056,279 @@ def phase_flat_extraction(aff, desc, imgs, nchw_outs, device) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-14: HesAffBaum and OnePassSIR
+# ---------------------------------------------------------------------------
+
+BAUM_ITERS = 16                   # affnet_tpu/cli/hesaffbaum.py --iters
+EXTRACT_GEOM_MODES = {            # affnet_tpu/cli/extract_geom.py
+    "topk_sift": ["2000", "--descriptor", "SIFT"],
+    "th_ori": ["--th", "28.41", "--do-ori"],
+}
+
+
+def save_npy(tmp: str, imgs) -> list:
+    """The images as .npy files (the programs' input without PIL)."""
+    paths = []
+    for i, img in enumerate(imgs):
+        paths.append(os.path.join(tmp, f"img{i}.npy"))
+        np.save(paths[-1], img)
+    return paths
+
+
+def baumberg_site_lafs(det, img):
+    """The Baumberg site's (PS 19) inputs, iteration by iteration, as the
+    extractor's ``_affine_shape`` makes them: (level buffer, extraction
+    levels, the LAFs of each iteration)."""
+    with torch.inference_mode(), float32_math():
+        p = det._plan(*img.shape)
+        cand = det._multiscale_detect(img, p)
+        lafs0 = torch.cat([det.cfg.mr_size * cand["lafs"][:, :, 0:2],
+                           cand["lafs"][:, :, 2:]], dim=2)
+        lvl = cand["ext_level"].to(torch.int32)
+        base_A = torch.eye(2, device=img.device).expand(len(lafs0), 2, 2)
+        lafs, all_lafs = lafs0, []
+        for _ in range(det.cfg.num_baum_iters):
+            all_lafs.append(lafs.contiguous())
+            patches = extract_patches_from_flat_pyramid(
+                cand["flat"], lafs, lvl, *p.tables, ps=det.shape_net.ps)
+            base_A = det.shape_net(patches) @ base_A
+            lafs = torch.cat([base_A @ lafs0[:, :, 0:2], lafs0[:, :, 2:]],
+                             dim=2)
+    return cand["flat"], lvl, all_lafs
+
+
+def check_baumberg_site(det, img) -> dict:
+    """B4's generic instance at PS 19 at each of the 16 Baumberg iterations
+    of one image: bit-identical to its plain version at every iteration;
+    device ms of each launch (one image's 16 in order), its bound, the
+    plain version's and F.grid_sample's time on the same work, each per
+    launch averaged over the 16."""
+    tables = det._plan(*img.shape).tables
+    buf, lvl, all_lafs = baumberg_site_lafs(det, img)
+    ps = det.shape_net.ps
+
+    def kernel():
+        return [cuda_patches.extract_patches_cuda(buf, lafs, lvl, *tables,
+                                                  ps=ps)
+                for lafs in all_lafs]
+
+    def plain():
+        return [extract_patches_from_flat_pyramid(buf, lafs, lvl, *tables,
+                                                  ps=ps)
+                for lafs in all_lafs]
+
+    for i, (got, ref) in enumerate(zip(kernel(), plain())):
+        require(torch.equal(got, ref), f"patches (Baumberg iteration {i}, "
+                f"PS {ps}): not bit-identical, max err "
+                f"{float((got - ref).abs().max())}")
+    per = kernel_times(kernel, "sample_patches", len(all_lafs))
+    work = [patch_work(buf, lafs, lvl, tables, ps) for lafs in all_lafs]
+    b4 = buf[None, None]
+    for i, (ms, (t, by, _)) in enumerate(zip(per, work)):
+        log(f"  B4 PS {ps} Baumberg iteration {i}: ms {ms:.4f} bound_ms "
+            f"{t:.5f} ({by})")
+    n = len(all_lafs)
+    bys = {by for _, by, _ in work}
+    return dict(
+        name="patches_baum", err=0.0, shape=(len(lvl), ps, ps),
+        ms=sum(per) / n, event_ms=event_median_ms(kernel, 10) / n,
+        plain_ms=time_ms(plain, 3) / n,
+        library_ms=time_ms(lambda: [F.grid_sample(
+            b4, g, mode="bilinear", padding_mode="zeros",
+            align_corners=False) for _, _, g in work], 5) / n,
+        bound_ms=sum(t for t, _, _ in work) / n,
+        bound_by=bys.pop() if len(bys) == 1 else "operations",
+        per_launch=per)
+
+
+def check_golden_baum(device) -> None:
+    """The reference's HesAffBaum golden (detector_golden.npz: 50
+    features, 16 iterations, the handcrafted estimator) on the card, at
+    the JAX test's tolerances (tests/test_detector.py)."""
+    g = np.load(os.path.join(FIXTURES, "detector_golden.npz"))
+    out = hesaffbaum.make_extractor(50, BAUM_ITERS, device)(g["img"])
+    require(len(out["resp"]) == len(g["baum_resp"]),
+            f"golden Baumberg: {len(out['resp'])} keypoints, expected "
+            f"{len(g['baum_resp'])}")
+    np.testing.assert_allclose(out["lafs"], g["baum_lafs"], atol=1e-2)
+    np.testing.assert_allclose(out["resp"], g["baum_resp"], atol=0.1,
+                               rtol=1e-4)
+
+
+def phase_hesaffbaum(imgs, device) -> dict:
+    """Phase 13: the HesAffBaum program (top-k 2000, border 5, mrSize
+    5.192, 16 handcrafted Baumberg iterations at PS 19): the golden; B4 at
+    PS 19 at each iteration of the first image; the program's ``main`` on
+    each image (.npy) with the launches counted from 0 around the runs: 16
+    B4 and 1 B3 launches per image; keypoints against the plain path on
+    the card; ms per image."""
+    t = time.perf_counter()
+    check_golden_baum(device)
+    log("golden 120x160 HesAffBaum: within the JAX test's tolerances")
+    det = hesaffbaum.make_extractor(NFEATS, BAUM_ITERS, device)
+    det_plain = hesaffbaum.make_extractor(NFEATS, BAUM_ITERS, device,
+                                          use_kernels=False)
+    site = check_baumberg_site(det, torch.from_numpy(imgs[0]).to(device))
+    log(f"hesaffbaum B4 checks wall_s: {time.perf_counter() - t:.3f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = save_npy(tmp, imgs)
+        reset_launch_counts()
+        for i, path in enumerate(paths):
+            hesaffbaum.main([path, os.path.join(tmp, f"o{i}.ells"),
+                             str(NFEATS)])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        log(f"hesaffbaum path launches ({len(imgs)} images): "
+            f"{json.dumps(counts)}")
+        n = len(imgs)
+        require(counts["patches"] == BAUM_ITERS * n and counts["topk"] == n,
+                f"hesaffbaum: {counts['patches']} B4 and {counts['topk']} "
+                f"B3 launches over {n} images, expected {BAUM_ITERS} and 1 "
+                "per image")
+        for name in ("blur", "detect", "dedup", "refine"):
+            require(counts[name] > 0, f"kernel {name} not launched on the "
+                    "hesaffbaum path")
+        require(counts["patches_bf16"] == 0, "B4-bf16 launched")
+        for i, img in enumerate(imgs):
+            ells = read_ells(os.path.join(tmp, f"o{i}.ells"))
+            out, ref = det(img), det_plain(img)
+            require(np.array_equal(out["orig_idx"], ref["orig_idx"]),
+                    f"image {i}: keypoints differ from the plain path")
+            lerr = float(np.abs(out["lafs"] - ref["lafs"]).max())
+            require(lerr == 0.0, f"image {i}: LAFs differ from the plain "
+                    f"path by {lerr}")
+            mine = lafs_to_ells(torch.from_numpy(out["lafs"]))
+            require(len(ells) == len(out["resp"]) > 1000
+                    and np.allclose(ells, mine.numpy(), rtol=0, atol=1e-9),
+                    f"image {i}: the program's file differs from the run")
+            log(f"image {i}: {len(ells)} regions of {NFEATS} (the gate's "
+                f"survivors of 3000 after {BAUM_ITERS} iterations), "
+                f"n_detected {out['n_detected']}; keypoints identical to "
+                f"the plain path, LAF max |diff| {lerr}")
+    per_img, per_plain = time_per_image([det, det_plain], imgs)
+    ms = float(np.median(per_img))
+    log(f"hesaffbaum_ms_per_image: median {ms:.3f} (all "
+        f"{[round(x, 3) for x in per_img]}); plain path median "
+        f"{np.median(per_plain):.3f}")
+    log(f"phase hesaffbaum wall_s: {time.perf_counter() - t:.3f}")
+    return dict(counts=counts, site=site, ms=ms)
+
+
+def check_golden_onepass(device) -> None:
+    """The reference's OnePassSIR golden (onepass_golden.npz) on the card:
+    the dense map (atol 1e-4) and the 50-feature detector (the JAX test's
+    tolerances, tests/test_onepass.py)."""
+    g = np.load(os.path.join(FIXTURES, "onepass_golden.npz"))
+    dense = AffNetFastFullConv.pretrained().to(device)
+    with torch.inference_mode(), float32_math():
+        got = dense(torch.from_numpy(g["img"]).to(device)).cpu().numpy()
+    np.testing.assert_allclose(got, g["dense_map"], atol=1e-4)
+    err = float(np.abs(got - g["dense_map"]).max())
+    det = OnePassSIR(DetectorConfig(num_features=50, border=15,
+                                    mr_size=5.192), device=device)
+    out = det(g["img"])
+    require(len(out["resp"]) == 50, "golden OnePassSIR: keypoint count")
+    np.testing.assert_allclose(out["resp"], g["resp"], atol=0.1, rtol=1e-4)
+    np.testing.assert_allclose(out["lafs"], g["lafs"], atol=1e-2)
+    log(f"golden 120x160 OnePassSIR: dense map max |diff| {err:.3g} "
+        "(atol 1e-4); detector within the JAX test's tolerances")
+
+
+def phase_onepass(imgs, device) -> dict:
+    """Phase 14: the OnePassSIR program (border 15, mrSize 5.192, the dense
+    AffNet on each octave's level 0, the 3x boundary gate): the golden; B2's
+    refine at every survivor of the first image, bit for bit; the
+    program's ``main`` on each image (.npy) in top-k mode with SIFT (2000)
+    and in threshold mode (th 28.41, OriNetFast32), the launches counted
+    from 0 around each; keypoints against the plain path on the card; ms
+    per image; the dense net's share of the extractor's device time."""
+    t = time.perf_counter()
+    check_golden_onepass(device)
+    det = extract_geom.make_extractor(device=device)
+    img0 = torch.from_numpy(imgs[0]).to(device)
+    with torch.inference_mode(), float32_math():
+        p = det._plan(*img0.shape)
+        flat, resp = det._responses(img0, p)
+        surv = torch.nonzero(resp > 0)[:, 0]
+        refine = check_refine("refine_survivors", flat, surv,
+                              p.refine_tables, det.cfg.effective_th)
+        dense_ms = time_ms(lambda: det.shape_fields(p, flat), 5)
+        levels0 = [lv[0].contiguous()[None, None]
+                   for lv in pyramid_views(flat, p.plan)]
+        norm_ms = time_ms(lambda: [local_norm_2d(x) for x in levels0], 5)
+        run_ms = time_ms(lambda: det.run(img0), 5)
+    torch.cuda.synchronize()
+    log(f"onepass refine at every survivor: {surv.numel()} survivors of "
+        f"image 0, bit-identical")
+    log(f"onepass dense AffNet ({len(levels0)} octaves' fields, cuDNN "
+        f"under nchw): device ms {dense_ms:.4f} of the top-k extraction's "
+        f"{run_ms:.4f} per image (share {dense_ms / run_ms:.3f}); its "
+        f"local_norm_2d (33x33 windows) {norm_ms:.4f}")
+    res = dict(refine=refine, dense_ms=dense_ms, norm_ms=norm_ms,
+               run_ms=run_ms, modes={})
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = save_npy(tmp, imgs)
+        for mode, flags in EXTRACT_GEOM_MODES.items():
+            th = mode == "th_ori"
+            reset_launch_counts()
+            for i, path in enumerate(paths):
+                extract_geom.main([path, os.path.join(tmp, f"{mode}{i}.ells"),
+                                   *flags, "--save-lafs",
+                                   os.path.join(tmp, f"{mode}{i}.npy")])
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            log(f"onepass {mode} path launches ({len(imgs)} images): "
+                f"{json.dumps(counts)}")
+            n = len(imgs)
+            want = {"refine": n if th else 2 * n, "topk": 0 if th else n,
+                    "patches": n}
+            got = {k: counts[k] for k in want}
+            require(got == want, f"onepass {mode}: launches {got}, expected "
+                    f"{want}")
+            for name in ("blur", "detect", "dedup"):
+                require(counts[name] > 0, f"kernel {name} not launched on "
+                        f"the onepass {mode} path")
+            kw = dict(th=28.41, do_ori=True) if th else dict(
+                descriptor="SIFT")
+            runs = [extract_geom.make_extractor(device=device,
+                                                use_kernels=uk, **kw)
+                    for uk in (True, False)]
+            call = dict(do_ori=th, describe=not th)
+            for i, img in enumerate(imgs):
+                lafs = np.load(os.path.join(tmp, f"{mode}{i}.npy"))
+                out, ref = (d(img, **call) for d in runs)
+                require(np.array_equal(out["orig_idx"], ref["orig_idx"])
+                        and out["n_detected"] == ref["n_detected"],
+                        f"onepass {mode} image {i}: keypoints differ from "
+                        "the plain path")
+                errs = {k: float(np.abs(out[k].astype(np.float32)
+                                        - ref[k].astype(np.float32)).max())
+                        for k in out if k not in ("orig_idx", "oct_idx",
+                                                  "level_idx", "n_detected")}
+                require(max(errs.values()) <= 1e-4, f"onepass {mode} image "
+                        f"{i}: differs from the plain path {errs}")
+                require(np.isfinite(lafs).all() and lafs.shape == (
+                    len(out["resp"]), 2, 3) and np.allclose(
+                    lafs, out["lafs"], rtol=0, atol=1e-5),
+                    f"onepass {mode} image {i}: the program's LAFs differ "
+                    "from the run")
+                log(f"onepass {mode} image {i}: {len(lafs)} regions, "
+                    f"{out['n_detected']} survivors past the 3x gate; "
+                    f"keypoints identical to the plain path, max |diff| "
+                    f"{errs}")
+            per_img, per_plain = time_per_image(
+                [functools.partial(d, **call) for d in runs], imgs)
+            res["modes"][mode] = dict(counts=counts,
+                                      ms=float(np.median(per_img)))
+            log(f"onepass_{mode}_ms_per_image: median "
+                f"{res['modes'][mode]['ms']:.3f} (all "
+                f"{[round(x, 3) for x in per_img]}); plain path median "
+                f"{np.median(per_plain):.3f}")
+    log(f"phase onepass wall_s: {time.perf_counter() - t:.3f}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2115,6 +2424,13 @@ def run_phases(args) -> int:
     flat_res = phase_flat_extraction(
         aff, desc, imgs, {"float32": main_res["outs"], "fast": fast_outs},
         device)
+    baum = phase_hesaffbaum(imgs, device)
+    onepass = phase_onepass(imgs, device)
+    for r in (baum["site"], onepass["refine"]):
+        log(f"kernel {r['name']} {r['shape']}: max_abs_err {r['err']:.3g} "
+            f"ms {r['ms']:.4f} event_median_ms {r['event_ms']:.4f} "
+            f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
     log(smi)
 
     # (result, counter, source, TPU kernel).  B4 at its two extraction
@@ -2179,6 +2495,19 @@ def run_phases(args) -> int:
         rows.append((r, hes["counts"]["conv"],
                      "affnet_tpu_torch/csrc/conv.cu",
                      "affnet_tpu/ops/pallas_conv.py:77"))
+    # B4's generic instance at the HesAffBaum program's Baumberg site (PS
+    # 19), with that path's launches (phase 13); B2's refine at every
+    # survivor, with the OnePassSIR path's refine launches in both modes
+    # (phase 14: at every survivor, and at the top-k's indices in top-k
+    # mode).
+    rows.append((baum["site"], baum["counts"]["patches"],
+                 "affnet_tpu_torch/csrc/patches.cu",
+                 "affnet_tpu/ops/pallas_patches.py:94"))
+    rows.append((onepass["refine"],
+                 sum(m["counts"]["refine"]
+                     for m in onepass["modes"].values()),
+                 "affnet_tpu_torch/csrc/detect.cu",
+                 "affnet_tpu/ops/pallas_detect.py:84"))
     kernels = [{
         "name": r["name"], "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from affnet_tpu_torch import load_pretrained
-from affnet_tpu_torch.cli import hesaffnet
+from affnet_tpu_torch.cli import extract_geom, hesaffbaum, hesaffnet
 from affnet_tpu_torch.detector import (DetectorConfig,
                                        ScaleSpaceAffinePatchExtractor)
 from affnet_tpu_torch.models import (AffNetFast, HardTFeatNet, OriNetFast32,
@@ -722,3 +722,108 @@ def test_hesaffnet_program_flat_on_card(dev):
     n = len(ref["orig_idx"])
     assert np.setdiff1d(out["orig_idx"], ref["orig_idx"]).size <= 2 * n // 1000
     assert np.setdiff1d(ref["orig_idx"], out["orig_idx"]).size <= 2 * n // 1000
+
+
+def _baumberg_site_lafs(det, img):
+    """The extractor's inputs at the Baumberg site (PS 19), iteration by
+    iteration: (level buffer, tables, extraction levels, the LAFs of each
+    of the ``num_baum_iters`` iterations), as ``_affine_shape`` makes
+    them."""
+    with torch.inference_mode(), float32_math():
+        p = det._plan(*img.shape)
+        cand = det._multiscale_detect(img, p)
+        lafs0 = torch.cat([det.cfg.mr_size * cand["lafs"][:, :, 0:2],
+                           cand["lafs"][:, :, 2:]], dim=2)
+        lvl = cand["ext_level"].to(torch.int32)
+        base_A = torch.eye(2, device=img.device).expand(len(lafs0), 2, 2)
+        lafs, all_lafs = lafs0, []
+        for _ in range(det.cfg.num_baum_iters):
+            all_lafs.append(lafs.contiguous())
+            patches = extract_patches_from_flat_pyramid(
+                cand["flat"], lafs, lvl, *p.tables, ps=det.shape_net.ps)
+            base_A = det.shape_net(patches) @ base_A
+            lafs = torch.cat([base_A @ lafs0[:, :, 0:2], lafs0[:, :, 2:]],
+                             dim=2)
+    return cand["flat"], p.tables, lvl, all_lafs
+
+
+def test_patches_kernel_at_the_baumberg_site(dev):
+    """B4's generic instance at PS 19 on the 16 Baumberg iterations' LAFs
+    of the 640x800 fixture (3000 candidates, shapes growing elongated):
+    bit-identical to the plain sampler at every iteration."""
+    img = torch.from_numpy(np.load(os.path.join(
+        FIX, "detector_golden_fullres.npz"))["img"]).to(dev)
+    det = hesaffbaum.make_extractor(device=dev)
+    buf, tables, lvl, all_lafs = _baumberg_site_lafs(det, img)
+    assert len(all_lafs) == 16 and len(all_lafs[0]) == 3000
+    for i, lafs in enumerate(all_lafs):
+        before = cuda_patches.launches
+        got = cuda_patches.extract_patches_cuda(buf, lafs, lvl, *tables,
+                                                ps=19)
+        assert cuda_patches.launches == before + 1
+        ref = extract_patches_from_flat_pyramid(buf, lafs, lvl, *tables,
+                                                ps=19)
+        assert torch.equal(got, ref), i
+
+
+def test_hesaffbaum_on_card(dev):
+    """The HesAffBaum program's extractor on the 640x800 fixture: 16 B4
+    launches and one B3 launch per image, and the plain path's output bit
+    for bit (every kernel of the path is bit-identical to its plain
+    version, and the estimator is the same PyTorch on both)."""
+    img = np.load(os.path.join(FIX, "detector_golden_fullres.npz"))["img"]
+    outs = []
+    for uk in (True, False):
+        det = hesaffbaum.make_extractor(device=dev, use_kernels=uk)
+        before = launch_counts()
+        outs.append(det(img))
+        got = {k: launch_counts()[k] - before[k] for k in ("patches", "topk")}
+        assert got == ({"patches": 16, "topk": 1} if uk
+                       else {"patches": 0, "topk": 0})
+    assert len(outs[0]["resp"]) > 1000
+    for k in outs[1]:
+        np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
+
+
+def test_refine_kernel_at_every_survivor(dev):
+    """B2's refine at every NMS survivor of the 640x800 fixture (the
+    OnePassSIR gate's site), bit-identical to refine_plain."""
+    img = torch.from_numpy(np.load(os.path.join(
+        FIX, "detector_golden_fullres.npz"))["img"]).to(dev)
+    det = extract_geom.make_extractor(device=dev)
+    with torch.inference_mode():
+        p = det._plan(*img.shape)
+        flat, resp = det._responses(img, p)
+        surv = torch.nonzero(resp > 0)[:, 0]
+        before = cuda_detect.launches_refine
+        got = cuda_detect.refine_cuda(flat, surv, p.refine_tables, 0.0)
+        assert cuda_detect.launches_refine == before + 1
+        ref = cuda_detect.refine_plain(flat, surv, p.refine_tables, 0.0)
+    assert len(surv) > 3000
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("th", [None, 28.41])
+def test_onepass_on_card(dev, th):
+    """OnePassSIR on the 640x800 fixture, top-k (2000, SIFT descriptors)
+    and threshold mode (th 28.41, OriNetFast32): the plain path's keypoints
+    bit for bit; B2's refine at every survivor (and at the top-k's indices
+    in top-k mode), B3 in top-k mode only."""
+    img = np.load(os.path.join(FIX, "detector_golden_fullres.npz"))["img"]
+    outs = []
+    for uk in (True, False):
+        det = extract_geom.make_extractor(
+            th=th, do_ori=th is not None,
+            descriptor=None if th else "SIFT", device=dev, use_kernels=uk)
+        before = launch_counts()
+        outs.append(det(img, do_ori=th is not None, describe=th is None))
+        got = {k: launch_counts()[k] - before[k]
+               for k in ("refine", "topk", "patches")}
+        want = {"refine": 2 if th is None else 1,
+                "topk": 1 if th is None else 0, "patches": 1}
+        assert got == (want if uk else dict.fromkeys(want, 0)), got
+    assert outs[0]["n_detected"] == outs[1]["n_detected"] > 2000
+    assert np.array_equal(outs[0]["orig_idx"], outs[1]["orig_idx"])
+    for k in outs[1]:
+        np.testing.assert_allclose(outs[0][k], outs[1][k], rtol=0, atol=1e-5,
+                                   err_msg=k)

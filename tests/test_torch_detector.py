@@ -24,6 +24,8 @@ from affnet_tpu_torch import load_pretrained
 from affnet_tpu_torch.detector import (DetectorConfig,
                                        ScaleSpaceAffinePatchExtractor)
 from affnet_tpu_torch.models import AffNetFast, HardTFeatNet, params_from_jax
+from affnet_tpu_torch.models.handcrafted import (AffineShapeEstimator,
+                                                 OrientationDetector)
 from affnet_tpu_torch.laf import sc_y_x_to_lafs
 from affnet_tpu_torch.ops import launch_counts
 from affnet_tpu_torch.ops.nms import masked_topk
@@ -178,9 +180,13 @@ def test_cpu_run_launches_no_kernel(small):
 
 
 def test_config_and_device_checks(monkeypatch):
-    with pytest.raises(ValueError, match="shape_net"):
-        ScaleSpaceAffinePatchExtractor(DetectorConfig(num_baum_iters=1),
-                                       device="cpu")
+    # No shape or orientation net: the handcrafted estimators at PS 19,
+    # as the JAX extractor defaults.
+    det = ScaleSpaceAffinePatchExtractor(DetectorConfig(num_baum_iters=1),
+                                         device="cpu")
+    assert isinstance(det.shape_net, AffineShapeEstimator)
+    assert isinstance(det.ori_net, OrientationDetector)
+    assert det.shape_net.ps == det.ori_net.ps == 19
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ScaleSpaceAffinePatchExtractor(DetectorConfig())

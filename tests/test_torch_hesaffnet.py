@@ -145,14 +145,17 @@ def test_threshold_config_and_checks():
     assert top.prefilter_count() == 3000 and top.final_count() == 2000
     det = ScaleSpaceAffinePatchExtractor(
         DetectorConfig(th=-1.0, border=5, mr_size=5.192), device="cpu")
-    with pytest.raises(ValueError, match="ori_net"):
-        det(_img("detector_golden"), do_ori=True)
     # Without a shape stage, threshold mode keeps every survivor.
     before = launch_counts()
     out = det(_img("detector_golden"))
     assert launch_counts() == before
     assert len(out["resp"]) == out["n_detected"] > 0
     assert np.all(np.diff(out["orig_idx"]) > 0)
+    # No ori_net: the handcrafted orientation rotates the same keypoints.
+    rot = det(_img("detector_golden"), do_ori=True)
+    assert np.array_equal(rot["orig_idx"], out["orig_idx"])
+    assert np.allclose(np.linalg.det(rot["lafs"][:, :, :2]),
+                       np.linalg.det(out["lafs"][:, :, :2]), rtol=1e-4)
 
 
 def test_svd2x2_and_lafs_to_ells_match_jax():

@@ -27,6 +27,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "import affnet_tpu_torch.models.sift, affnet_tpu_torch.cli\n"
         "import affnet_tpu_torch.cli.optimize_shapes\n"
         "import affnet_tpu_torch.cli.hesaffnet\n"
+        "import affnet_tpu_torch.cli.hesaffbaum\n"
+        "import affnet_tpu_torch.cli.extract_geom\n"
+        "import affnet_tpu_torch.onepass, affnet_tpu_torch.models.dense\n"
+        "import affnet_tpu_torch.models.handcrafted\n"
         "import affnet_tpu_torch.io_formats, affnet_tpu_torch.ops.cuda_conv\n"
         "import affnet_tpu_torch.kernels.build\n"
         "import chip_smoke\n"
