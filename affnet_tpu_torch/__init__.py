@@ -65,7 +65,13 @@ def load_params_npz(path: str) -> Dict[str, Any]:
     return tree
 
 
-# The extractors (imported last: their modules use the helpers above).
+# The extractors and the inference helpers (imported last: their modules
+# use the helpers above).
 from .detector import (DetectorConfig,  # noqa: E402, F401
                        ScaleSpaceAffinePatchExtractor)
 from .onepass import OnePassSIR  # noqa: E402, F401
+from .keypoints import (describe_keypoints,  # noqa: E402, F401
+                        lafs_from_keypoints, process_keypoints)
+from .match import snn_match, snn_match_host  # noqa: E402, F401
+from .export import export_patch_net, load_exported  # noqa: E402, F401
+from .utils import StageTimer, fence, profiler_trace  # noqa: E402, F401

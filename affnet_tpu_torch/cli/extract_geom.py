@@ -34,7 +34,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .. import load_params_npz, load_pretrained
+from .. import load_params_npz
 from ..detector import DetectorConfig
 from ..io_formats import write_ells, write_lafs_npy
 from ..laf import lafs_to_ells
@@ -42,6 +42,7 @@ from ..models import HardNet, OriNetFast32, params_from_jax
 from ..models.cnn import init_params
 from ..models.sift import SIFTNet
 from ..onepass import OnePassSIR
+from . import pretrained
 from .hesaffnet import load_gray
 
 
@@ -70,10 +71,7 @@ def make_extractor(nfeats: int = 2000, th: Optional[float] = None,
                          num_baum_iters=0, th=th,
                          max_keypoints=max_keypoints, patch_size=32,
                          fast=fast)
-    ori = None
-    if do_ori:
-        ori = OriNetFast32()
-        ori.load_state_dict(params_from_jax(load_pretrained("OriNetFast")))
+    ori = pretrained(OriNetFast32(), "OriNetFast") if do_ori else None
     return OnePassSIR(cfg, ori_net=ori,
                       desc_net=make_descriptor(descriptor, desc_weights),
                       device=device, use_kernels=use_kernels)

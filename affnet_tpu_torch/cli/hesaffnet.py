@@ -54,11 +54,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .. import load_pretrained
 from ..detector import DetectorConfig, ScaleSpaceAffinePatchExtractor
 from ..io_formats import write_ells
 from ..laf import lafs_to_ells
-from ..models import AffNetFast, OriNetFast32, params_from_jax
+from ..models import AffNetFast, OriNetFast32
+from . import pretrained
 
 
 def load_gray(fname: str) -> np.ndarray:
@@ -84,12 +84,8 @@ def make_extractor(nfeats: int = 2000, topk: bool = False, th: float = -1.0,
     cfg = DetectorConfig(num_features=nfeats, border=5, mr_size=5.192,
                          num_baum_iters=1, th=None if topk else th,
                          max_keypoints=max_keypoints, fast=fast)
-    aff = AffNetFast()
-    aff.load_state_dict(params_from_jax(load_pretrained("AffNetFast")))
-    ori = None
-    if do_ori:
-        ori = OriNetFast32()
-        ori.load_state_dict(params_from_jax(load_pretrained("OriNetFast")))
+    aff = pretrained(AffNetFast(), "AffNetFast")
+    ori = pretrained(OriNetFast32(), "OriNetFast") if do_ori else None
     return ScaleSpaceAffinePatchExtractor(cfg, shape_net=aff, ori_net=ori,
                                           device=device,
                                           use_kernels=use_kernels)

@@ -131,6 +131,24 @@ Phases, each timed and each fatal on failure:
                keypoints identical to the plain path on the card, survivor
                counts, ms per image; the dense net's share of the
                extraction's device time.
+ 15. apps  — the inference programs on the images of phase 3: B4 at the
+               external-keypoint site (the image itself as a one-level
+               buffer; 8000 seeded keypoints of 2-30 px, a quarter near a
+               border) at each of process_keypoints' three stages
+               (AffNetFast, OriNetFast32, HardTFeatNet) bit-identical to
+               its plain version, timed beside it, F.grid_sample and its
+               bound; the outputs against the plain path on the card
+               (tolerance 1e-5); describe_keypoints on each image with the
+               counts from 0: 3 B4 launches per call and nothing else, ms
+               per call; the describe_keypoints program's main on a .npy
+               image; eval_graf's evaluate_pair (3000 features, AffNetFast,
+               SIFT) and match_demo's match_images (2000) on an image and
+               its seeded homography warp: B1-B4 launched, tentatives, true
+               matches, inlier ratio, ms per pair, snn_match on the card
+               against the CPU; profile_pipeline's main (--runs 3 --trace):
+               the three stage lines, a trace naming B1-B4; the export
+               round trip of AffNetFast and HardTFeatNet on the card at
+               batches 3000 and 517 (within 1e-6 of the module).
 
 Kernel times ("ms") are device times from torch.profiler (CUPTI): the
 card's busy time per call, without the host's launch overhead.  The log
@@ -150,9 +168,11 @@ it the per-kernel JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import functools
+import io
 import itertools
 import json
 import math
@@ -169,15 +189,17 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from affnet_tpu_torch import load_pretrained
-from affnet_tpu_torch.cli import (extract_geom, hesaffbaum, hesaffnet,
-                                  optimize_shapes)
+from affnet_tpu_torch import export, keypoints, load_pretrained, match
+from affnet_tpu_torch.cli import (describe_keypoints, eval_graf, extract_geom,
+                                  hesaffbaum, hesaffnet, match_demo,
+                                  optimize_shapes, pretrained,
+                                  profile_pipeline)
 from affnet_tpu_torch.data import (DevicePairDataset, PairDataset,
                                    synthetic_pairs_from_image)
 from affnet_tpu_torch.detector import (DetectorConfig,
                                        ScaleSpaceAffinePatchExtractor)
 from affnet_tpu_torch.kernels import build
-from affnet_tpu_torch.models import AffNetFast, HardTFeatNet, params_from_jax
+from affnet_tpu_torch.models import AffNetFast, HardTFeatNet, OriNetFast32
 from affnet_tpu_torch.io_formats import read_ells, write_ells
 from affnet_tpu_torch.models import cnn
 from affnet_tpu_torch.models.cnn import init_params
@@ -246,11 +268,8 @@ def make_images(seed: int, n: int) -> list:
 
 
 def pretrained_nets():
-    aff = AffNetFast()
-    aff.load_state_dict(params_from_jax(load_pretrained("AffNetFast")))
-    desc = HardTFeatNet()
-    desc.load_state_dict(params_from_jax(load_pretrained("HardTFeatNet")))
-    return aff, desc
+    return (pretrained(AffNetFast(), "AffNetFast"),
+            pretrained(HardTFeatNet(), "HardTFeatNet"))
 
 
 def time_ms(fn, reps: int, tries: int = 3) -> float:
@@ -334,24 +353,38 @@ def check_blur(img: torch.Tensor) -> dict:
         bound_ms=t_bytes, bound_by=by)
 
 
-def kernel_times(fn, name: str, n: int, reps: int = 10) -> list:
+def kernel_times(fn, name: str, n: int, reps: int = 10,
+                 tries: int = 3) -> list:
     """Device ms of each of the ``n`` launches of kernel ``name`` that one
     ``fn()`` call makes, in launch order: their CUPTI intervals over
-    ``reps`` warmed calls, averaged position by position."""
+    ``reps`` warmed calls, averaged position by position.  Each window
+    opens with a small kernel of another name and a synchronize: on the
+    card's machine the profiler has missed the first launch of a window
+    that began with the timed kernel itself (159 of 160 seen).  A window
+    without exactly ``n x reps`` records is measured again, up to
+    ``tries`` times, and logged."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and name in e.name)
-    require(len(spans) == n * reps, f"{name}: {len(spans)} launches under "
-            f"the profiler, expected {n} x {reps}")
-    us = np.array([b - a for a, b in spans], np.float64).reshape(reps, n)
-    return [float(x) for x in us.mean(axis=0) / 1e3]
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").mul_(2.0)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and name in e.name)
+        if len(spans) == n * reps:
+            us = np.array([b - a for a, b in spans], np.float64)
+            return [float(x) for x in us.reshape(reps, n).mean(axis=0) / 1e3]
+        log(f"kernel_times: {name}: {len(spans)} launches under the "
+            f"profiler, expected {n} x {reps} (try {attempt + 1} of "
+            f"{tries})")
+    raise AssertionError(f"{name}: the profiler did not see {n} x {reps} "
+                         "launches")
 
 
 def check_blur_image(img: torch.Tensor, plan) -> dict:
@@ -2329,6 +2362,319 @@ def phase_onepass(imgs, device) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the inference programs (external keypoints, matching, stage
+# timers, export)
+# ---------------------------------------------------------------------------
+
+N_KEYPOINTS = 8000                # a typical SIFT count on a 1080p image
+EXPORT_BATCHES = (3000, 517)
+PROFILE_KERNELS = ("blur_", "detect_stencil", "row_topm", "sample_patches")
+
+
+def card_keypoints(seed: int, n: int, h: int, w: int) -> tuple:
+    """n seeded keypoints (x, y, size, OpenCV angle): centres uniform over
+    the image, sizes 2-30 px, and a quarter of them within 3 x size of a
+    border (some outside the image)."""
+    rng = np.random.RandomState(seed)
+    size = rng.uniform(2.0, 30.0, n)
+    x, y = rng.uniform(0, w, n), rng.uniform(0, h, n)
+    near = np.nonzero(rng.rand(n) < 0.25)[0]
+    off = rng.uniform(-1.0, 3.0, len(near)) * size[near]
+    side = rng.randint(0, 4, len(near))
+    x[near] = np.where(side == 0, off, np.where(side == 1, w - off,
+                                                 x[near]))
+    y[near] = np.where(side == 2, off, np.where(side == 3, h - off,
+                                                 y[near]))
+    return tuple(a.astype(np.float32) for a in
+                 (x, y, size, rng.uniform(-180.0, 180.0, n)))
+
+
+def keypoint_nets(device) -> list:
+    """AffNetFast, OriNetFast32 and HardTFeatNet with the shipped weights,
+    on the card."""
+    return [pretrained(net, name).to(device).eval() for net, name in
+            ((AffNetFast(), "AffNetFast"), (OriNetFast32(), "OriNetFast"),
+             (HardTFeatNet(), "HardTFeatNet"))]
+
+
+def check_keypoint_site(img, lafs, nets) -> dict:
+    """B4 at the keypoint site (the image as a one-level buffer, PS 32) at
+    each of process_keypoints' three stages: bit-identical to its plain
+    version on that stage's LAFs; per-launch device ms (the three launches
+    of one call, in order), each stage's bound, the plain version's and
+    F.grid_sample's time on the same work, averaged over the three; the
+    share of samples outside the image (B4's masked path)."""
+    h, w = img.shape
+    tables = batched_tables(1, h, w, img.device)
+    lvl = torch.zeros(len(lafs), dtype=torch.int32, device=img.device)
+    with torch.inference_mode():
+        stage_lafs = [lafs,
+                      keypoints.process_keypoints(img, lafs, nets[0])["lafs"],
+                      keypoints.process_keypoints(img, lafs,
+                                                  *nets[:2])["lafs"]]
+    stage_lafs = [x.contiguous() for x in stage_lafs]
+    outside = []
+    for i, x in enumerate(stage_lafs):
+        got = cuda_patches.extract_patches_cuda(img, x, lvl, *tables[1:])
+        ref = extract_patches_from_flat_pyramid(img, x, lvl, *tables[1:])
+        require(torch.equal(got, ref), f"patches (keypoint stage {i}): not "
+                f"bit-identical, max err {float((got - ref).abs().max())}")
+        u, v, _, hh, ww = _sample_positions(x, lvl, *tables[1:], 32, False)
+        out = (u < 0) | (u > ww - 1) | (v < 0) | (v > hh - 1)
+        outside.append((float(out.float().mean()),
+                        float(out.flatten(1).any(1).float().mean())))
+    require(min(o[1] for o in outside) > 0.1, "keypoint site: too few "
+            f"patches reach past the image {outside}")
+
+    def call():
+        with torch.inference_mode():
+            return keypoints.process_keypoints(img, lafs, *nets)
+
+    per = kernel_times(call, "sample_patches", 3)
+    work = [patch_work(img, x, lvl, tables[1:], 32) for x in stage_lafs]
+    b4 = img[None, None]
+    for i, (ms, (t, by, _), o) in enumerate(zip(per, work, outside)):
+        log(f"  B4 keypoint stage {i}: ms {ms:.4f} bound_ms {t:.5f} ({by}); "
+            f"samples outside the image {o[0]:.3f}, patches reaching past "
+            f"it {o[1]:.3f}")
+    bys = {by for _, by, _ in work}
+    return dict(
+        name="patches_keypoints", err=0.0, shape=(len(lafs), 32, 32),
+        ms=sum(per) / 3,
+        event_ms=event_median_ms(lambda: [
+            cuda_patches.extract_patches_cuda(img, x, lvl, *tables[1:])
+            for x in stage_lafs], 10) / 3,
+        plain_ms=time_ms(lambda: [
+            extract_patches_from_flat_pyramid(img, x, lvl, *tables[1:])
+            for x in stage_lafs], 3) / 3,
+        library_ms=time_ms(lambda: [F.grid_sample(
+            b4, g, mode="bilinear", padding_mode="zeros",
+            align_corners=False) for _, _, g in work], 5) / 3,
+        bound_ms=sum(t for t, _, _ in work) / 3,
+        bound_by=bys.pop() if len(bys) == 1 else "operations",
+        per_launch=per, outside=outside)
+
+
+def host_ms(fn, reps: int = 3) -> list:
+    """Host-clock ms of ``reps`` warmed fn() calls, synchronized at both
+    ends."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    return times
+
+
+def warp_homography(img: torch.Tensor, seed: int) -> tuple:
+    """A second view of ``img`` under a seeded homography H (view 1 -> 2:
+    rotation within 10 degrees, scale 0.85-1.1, perspective up to 2e-5
+    about the centre), made on the card with F.grid_sample (bilinear,
+    zeros outside): (view 2, H as float32 numpy)."""
+    rng = np.random.RandomState(seed)
+    h, w = img.shape
+    a = np.deg2rad(rng.uniform(-10, 10))
+    s = rng.uniform(0.85, 1.1)
+    core = np.array([[s * np.cos(a), -s * np.sin(a), 0.0],
+                     [s * np.sin(a), s * np.cos(a), 0.0],
+                     [rng.uniform(-2e-5, 2e-5), rng.uniform(-2e-5, 2e-5),
+                      1.0]])
+    c = np.array([[1.0, 0.0, w / 2], [0.0, 1.0, h / 2], [0.0, 0.0, 1.0]])
+    H = c @ core @ np.linalg.inv(c)
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float64),
+                            torch.arange(w, dtype=torch.float64),
+                            indexing="ij")
+    pts = torch.from_numpy(np.linalg.inv(H)) @ torch.stack(
+        [xs.ravel(), ys.ravel(), torch.ones(h * w, dtype=torch.float64)])
+    u, v = pts[0] / pts[2], pts[1] / pts[2]
+    grid = torch.stack([(2 * u + 1) / w - 1, (2 * v + 1) / h - 1], -1)
+    view = F.grid_sample(img[None, None], grid.reshape(1, h, w, 2).float()
+                         .to(img.device), mode="bilinear",
+                         padding_mode="zeros", align_corners=False)[0, 0]
+    return view.contiguous(), H.astype(np.float32)
+
+
+def check_snn_card_cpu(d1: np.ndarray, d2: np.ndarray, device) -> dict:
+    """snn_match on the card against the CPU on the same descriptors: the
+    nearest neighbours and masks equal wherever the ratio is not within
+    1e-5 of the threshold; the disagreements there are counted."""
+    got = [t.cpu().numpy() for t in match.snn_match(
+        torch.from_numpy(d1).to(device), torch.from_numpy(d2).to(device))]
+    ref = [t.numpy() for t in match.snn_match(torch.from_numpy(d1),
+                                              torch.from_numpy(d2))]
+    near = np.abs(ref[3] - 0.8) <= 1e-5
+    bad = ((got[0] != ref[0]) | (got[1] != ref[1])) & ~near
+    require(not bad.any(), f"snn_match: {int(bad.sum())} rows differ "
+            "between the card and the CPU away from the threshold")
+    differ = int(((got[0] != ref[0]) | (got[1] != ref[1])).sum())
+    return dict(rows=len(d1), near_threshold=int(near.sum()),
+                disagree=differ,
+                ratio_err=float(np.abs(got[3] - ref[3]).max()))
+
+
+def phase_apps(imgs, device, seed: int) -> dict:
+    """Phase 15: the inference programs on the 1080p images.  B4 at the
+    keypoint site (8000 seeded keypoints, AffNetFast, OriNetFast32,
+    HardTFeatNet): each launch bit-identical, 3 launches per call, the
+    outputs against the plain path on the card; describe_keypoints over
+    the images with the launches counted from 0; the describe_keypoints
+    program's main on a .npy image; eval_graf's evaluate_pair (3000
+    features, AffNetFast, SIFT) and match_demo's match_images (2000) on an
+    image and its seeded homography warp, B1-B4 launched, snn_match card
+    against CPU; profile_pipeline's main with --runs 3 --trace; the export
+    round trip of AffNetFast and HardTFeatNet."""
+    t = time.perf_counter()
+    res = {}
+    nets = keypoint_nets(device)
+    img0 = torch.from_numpy(imgs[0]).to(device)
+    kps = [card_keypoints(seed + i, N_KEYPOINTS, H, W)
+           for i in range(len(imgs))]
+    lafs0 = keypoints.lafs_from_keypoints(*kps[0], (H, W)).to(device)
+    res["site"] = check_keypoint_site(img0, lafs0, nets)
+    with torch.inference_mode():
+        out = keypoints.process_keypoints(img0, lafs0, *nets)
+        ref = keypoints.process_keypoints(img0, lafs0, *nets,
+                                          use_kernels=False)
+    errs = {k: float((out[k] - ref[k]).abs().max()) for k in ref}
+    require(max(errs.values()) <= 1e-5, "process_keypoints: differs from "
+            f"the plain path on the card (tolerance 1e-5) {errs}")
+    log(f"process_keypoints ({N_KEYPOINTS} keypoints, 1080p): outputs "
+        f"against the plain path on the card, max |diff| {errs} "
+        "(tolerance 1e-5)")
+    with torch.inference_mode():
+        dev_ms = time_ms(lambda: keypoints.process_keypoints(
+            img0, lafs0, *nets), 5)
+    reset_launch_counts()
+    outs = [keypoints.describe_keypoints(img, *kp, shape_net=nets[0],
+                                         ori_net=nets[1], desc_net=nets[2],
+                                         device=device)
+            for img, kp in zip(imgs, kps)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"describe_keypoints path launches ({len(imgs)} images): "
+        f"{json.dumps(counts)}")
+    require(counts["patches"] == 3 * len(imgs) and all(
+        v == 0 for k, v in counts.items() if k != "patches"),
+        f"describe_keypoints: launches {counts}, expected 3 B4 per call "
+        "and nothing else")
+    for o in outs:
+        require(o["descs"].shape == (N_KEYPOINTS, 128)
+                and np.isfinite(o["descs"]).all() and np.allclose(
+                    np.linalg.norm(o["descs"], axis=1), 1.0, atol=1e-4),
+                "describe_keypoints: descriptors not finite unit vectors")
+    per_call = host_ms(lambda: keypoints.describe_keypoints(
+        imgs[0], *kps[0], shape_net=nets[0], ori_net=nets[1],
+        desc_net=nets[2], device=device))
+    res.update(counts=counts, device_ms=dev_ms,
+               ms=float(np.median(per_call)))
+    log(f"describe_keypoints_ms_per_call: median {res['ms']:.3f} (all "
+        f"{[round(x, 3) for x in per_call]}); process_keypoints device ms "
+        f"{dev_ms:.4f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        npy, kp_txt = os.path.join(tmp, "img.npy"), os.path.join(tmp, "k.txt")
+        np.save(npy, imgs[0])
+        np.savetxt(kp_txt, np.stack(kps[0], 1))
+        lafs_txt, descs = os.path.join(tmp, "l.txt"), os.path.join(tmp,
+                                                                   "d.npy")
+        describe_keypoints.main([npy, kp_txt, lafs_txt, "--descs", descs])
+        rows, d = np.loadtxt(lafs_txt), np.load(descs)
+        require(rows.shape == (N_KEYPOINTS, 7) and np.isfinite(rows).all()
+                and d.shape == (N_KEYPOINTS, 128) and np.isfinite(d).all()
+                and np.allclose(np.linalg.norm(d, axis=1), 1.0, atol=1e-4),
+                "describe_keypoints program: bad output files")
+        log(f"describe_keypoints program: {len(rows)} rows of 7 columns and "
+            "unit-norm descriptors")
+
+        view2, Hm = warp_homography(img0, seed)
+        img2 = view2.cpu().numpy()
+        det = eval_graf.make_extractor(device=device)
+        demo = match_demo.make_extractor(device=device)
+        reset_launch_counts()
+        n_tent, n_true, ratio, t1, _, _ = eval_graf.evaluate_pair(
+            det, imgs[0], img2, Hm)
+        m1, _, _, _ = match_demo.match_images(demo, imgs[0], img2)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        log(f"matching path launches (evaluate_pair and match_images): "
+            f"{json.dumps(counts)}")
+        for name in EXTRACTION_KERNELS:
+            require(counts[name] > 0, f"kernel {name} not launched on the "
+                    "matching path")
+        require(n_true >= 20, f"evaluate_pair: {n_tent} tentatives, only "
+                f"{n_true} true matches")
+        pair_ms = host_ms(lambda: eval_graf.evaluate_pair(det, imgs[0], img2,
+                                                          Hm))
+        demo_ms = host_ms(lambda: match_demo.match_images(demo, imgs[0],
+                                                          img2))
+        d1 = det(imgs[0], describe=True)["descs"]
+        d2 = det(img2, describe=True)["descs"]
+        snn = check_snn_card_cpu(d1, d2, device)
+        res["matching"] = dict(counts=counts, tentatives=n_tent,
+                               true=n_true, ratio=ratio,
+                               demo_tentatives=len(m1),
+                               ms=float(np.median(pair_ms)),
+                               demo_ms=float(np.median(demo_ms)), snn=snn)
+        log(f"eval_graf evaluate_pair (3000 features, AffNetFast, SIFT) on "
+            f"image 0 and its homography warp: {n_tent} tentatives {n_true} "
+            f"true matches {ratio:.4f} inl.ratio; ms per pair median "
+            f"{res['matching']['ms']:.3f} (all "
+            f"{[round(x, 3) for x in pair_ms]})")
+        log(f"match_demo match_images (2000 features): {len(m1)} tentatives;"
+            f" ms per pair median {res['matching']['demo_ms']:.3f}")
+        log(f"snn_match card against CPU on {snn['rows']} x {len(d2)} "
+            f"descriptors: {snn['disagree']} rows differ, "
+            f"{snn['near_threshold']} rows within 1e-5 of the threshold, "
+            f"ratio max |diff| {snn['ratio_err']:.3g}")
+
+        trace = os.path.join(tmp, "trace")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            timer = profile_pipeline.main([npy, "--runs", "3", "--trace",
+                                           trace])
+        printed = buf.getvalue().splitlines()
+        for line in printed:
+            log(f"  profile_pipeline: {line}")
+        require(timer.counts == dict.fromkeys(profile_pipeline.STAGES, 3)
+                and all(any(ln.startswith(f"{s}: ") for ln in printed)
+                        for s in profile_pipeline.STAGES),
+                "profile_pipeline: stage lines missing")
+        traces = [os.path.join(trace, f) for f in os.listdir(trace)]
+        require(len(traces) == 1, f"profile_pipeline: {traces}")
+        with open(traces[0]) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        missing = [k for k in PROFILE_KERNELS
+                   if not any(k in n for n in names)]
+        require(not missing, f"profile_pipeline trace lacks {missing}")
+        res["profile"] = {s: 1e3 * timer.totals[s] / timer.counts[s]
+                          for s in profile_pipeline.STAGES}
+        log(f"profile_pipeline trace: {os.path.getsize(traces[0])} bytes, "
+            f"names {list(PROFILE_KERNELS)}")
+
+    res["export"] = {}
+    for net, name in zip((nets[0], nets[2]), ("AffNetFast", "HardTFeatNet")):
+        t1 = time.perf_counter()
+        loaded = export.load_exported(export.export_patch_net(net))
+        export_s = time.perf_counter() - t1
+        errs = []
+        for n in EXPORT_BATCHES:
+            x = torch.rand((n, 32, 32), device=device,
+                           generator=torch.Generator(device).manual_seed(n))
+            with torch.no_grad(), float32_math():
+                errs.append(float((loaded(x) - net(x)).abs().max()))
+        require(max(errs) <= 1e-6, f"export {name}: {errs}")
+        res["export"][name] = errs
+        log(f"export {name}: exported and reloaded on the card in "
+            f"{export_s:.2f} s; max |diff| against the module at batches "
+            f"{EXPORT_BATCHES}: {errs} (tolerance 1e-6)")
+    log(f"phase apps wall_s: {time.perf_counter() - t:.3f}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2426,7 +2772,8 @@ def run_phases(args) -> int:
         device)
     baum = phase_hesaffbaum(imgs, device)
     onepass = phase_onepass(imgs, device)
-    for r in (baum["site"], onepass["refine"]):
+    apps = phase_apps(imgs, device, args.seed)
+    for r in (baum["site"], onepass["refine"], apps["site"]):
         log(f"kernel {r['name']} {r['shape']}: max_abs_err {r['err']:.3g} "
             f"ms {r['ms']:.4f} event_median_ms {r['event_ms']:.4f} "
             f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']} "
@@ -2508,6 +2855,12 @@ def run_phases(args) -> int:
                      for m in onepass["modes"].values()),
                  "affnet_tpu_torch/csrc/detect.cu",
                  "affnet_tpu/ops/pallas_detect.py:84"))
+    # B4 at the external-keypoint site (the image as a one-level buffer),
+    # with the describe_keypoints path's launches (phase 15: 3 per image).
+    rows.append((apps["site"], apps["counts"]["patches"],
+                 "affnet_tpu_torch/csrc/patches.cu",
+                 "affnet_tpu/ops/pallas_patches.py:94 via "
+                 "affnet_tpu/keypoints.py:67"))
     kernels = [{
         "name": r["name"], "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,

@@ -827,3 +827,96 @@ def test_onepass_on_card(dev, th):
     for k in outs[1]:
         np.testing.assert_allclose(outs[0][k], outs[1][k], rtol=0, atol=1e-5,
                                    err_msg=k)
+
+
+def _border_keypoints(seed, n, h, w):
+    """x, y, size (2-30 px) and OpenCV angles; half the centres within 3 x
+    size of the left or right edge, some outside the image."""
+    rng = np.random.RandomState(seed)
+    size = rng.uniform(2.0, 30.0, n)
+    x = rng.uniform(0, w, n)
+    edge = rng.rand(n) < 0.5
+    off = rng.uniform(-1.0, 3.0, n) * size
+    x[edge] = np.where(rng.rand(edge.sum()) < 0.5, off[edge],
+                       w - off[edge])
+    return (x.astype(np.float32), rng.uniform(0, h, n).astype(np.float32),
+            size.astype(np.float32),
+            rng.uniform(-180, 180, n).astype(np.float32))
+
+
+def test_patches_kernel_at_the_keypoint_site(dev):
+    """B4 over the image as a one-level buffer (external keypoints, many
+    corners outside it): bit-identical to its plain version at each of the
+    three stages, three launches per process_keypoints call, and the
+    outputs equal the plain path's on the card."""
+    from affnet_tpu_torch import keypoints
+    img = torch.from_numpy(np.load(os.path.join(
+        FIX, "detector_golden_fullres.npz"))["img"]).to(dev)
+    h, w = img.shape
+    lafs = keypoints.lafs_from_keypoints(
+        *_border_keypoints(0, 3000, h, w), (h, w)).to(dev)
+    nets = []
+    for cls, name in ((AffNetFast, "AffNetFast"),
+                      (OriNetFast32, "OriNetFast"),
+                      (HardTFeatNet, "HardTFeatNet")):
+        net = cls()
+        net.load_state_dict(params_from_jax(load_pretrained(name)))
+        nets.append(net.to(dev))
+    for ps in (32, 19):
+        got = keypoints._extract(img, lafs, ps, True)
+        assert torch.equal(got, keypoints._extract(img, lafs, ps, False))
+    with torch.inference_mode():
+        before = cuda_patches.launches
+        out = keypoints.process_keypoints(img, lafs, *nets)
+        assert cuda_patches.launches == before + 3
+        ref = keypoints.process_keypoints(img, lafs, *nets,
+                                          use_kernels=False)
+        assert cuda_patches.launches == before + 3
+    assert torch.equal(out["patches"], ref["patches"])
+    assert ((out["patches"] == 0).float().mean((1, 2)) > 0.2).any()
+    for k in ref:
+        assert float((out[k] - ref[k]).abs().max()) <= 1e-5, k
+
+
+def test_snn_match_on_card_matches_cpu(dev):
+    """snn_match on the card (TF32 off) against the CPU on the same
+    descriptors: the same nearest neighbours and masks wherever the ratio
+    is not within 1e-5 of the threshold."""
+    from affnet_tpu_torch import match
+    rng = np.random.RandomState(0)
+    d1 = rng.normal(size=(2000, 128)).astype(np.float32)
+    d2 = np.concatenate([d1[:1200] + 0.4 * rng.normal(size=(1200, 128)),
+                         rng.normal(size=(900, 128))]).astype(np.float32)
+    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    got = match.snn_match(torch.from_numpy(d1).to(dev),
+                          torch.from_numpy(d2).to(dev))
+    ref = match.snn_match(torch.from_numpy(d1), torch.from_numpy(d2))
+    got = [t.cpu().numpy() for t in got]
+    ref = [t.numpy() for t in ref]
+    clear = np.abs(ref[3] - 0.8) > 1e-5
+    assert clear.mean() > 0.99
+    np.testing.assert_array_equal(got[0][clear], ref[0][clear])
+    np.testing.assert_array_equal(got[1][clear], ref[1][clear])
+    np.testing.assert_allclose(got[3], ref[3], rtol=1e-5, atol=1e-5)
+    t1, t2 = match.snn_match_host(d1, d2, device=dev)
+    assert 100 < len(t1) == len(t2)
+
+
+def test_export_round_trip_on_card(dev):
+    """AffNetFast and HardTFeatNet exported on the card and reloaded: the
+    module's output within 1e-6 at two batch sizes."""
+    from affnet_tpu_torch import export
+    for cls, name in ((AffNetFast, "AffNetFast"),
+                      (HardTFeatNet, "HardTFeatNet")):
+        net = cls()
+        net.load_state_dict(params_from_jax(load_pretrained(name)))
+        net = net.to(dev)
+        loaded = export.load_exported(export.export_patch_net(net))
+        for n in (300, 77):
+            x = torch.rand((n, 32, 32), device=dev)
+            with torch.no_grad(), float32_math():
+                ref = net(x)
+                got = loaded(x)
+            assert got.device.type == "cuda"
+            assert float((got - ref).abs().max()) <= 1e-6, name

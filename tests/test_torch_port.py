@@ -33,6 +33,13 @@ def test_port_and_chip_smoke_import_no_jax():
         "import affnet_tpu_torch.models.handcrafted\n"
         "import affnet_tpu_torch.io_formats, affnet_tpu_torch.ops.cuda_conv\n"
         "import affnet_tpu_torch.kernels.build\n"
+        "import affnet_tpu_torch.keypoints, affnet_tpu_torch.match\n"
+        "import affnet_tpu_torch.export, affnet_tpu_torch.utils\n"
+        "import affnet_tpu_torch.cli.detect_affine_shape\n"
+        "import affnet_tpu_torch.cli.describe_keypoints\n"
+        "import affnet_tpu_torch.cli.match_demo\n"
+        "import affnet_tpu_torch.cli.eval_graf\n"
+        "import affnet_tpu_torch.cli.profile_pipeline\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'affnet_tpu' or m.startswith('affnet_tpu.')]\n"
