@@ -53,10 +53,13 @@ def load_pretrained(name: str,
 
 def load_params_npz(path: str) -> Dict[str, Any]:
     """A parameter tree from any npz in the JAX package's layout (flat
-    ``"layer{i}/w"`` keys), as :func:`load_pretrained` returns it."""
+    ``"layer{i}/w"`` keys), as :func:`load_pretrained` returns it; a
+    training checkpoint's ``__epoch__`` is left out."""
     tree: Dict[str, Any] = {}
     with np.load(path) as data:
         for key in data.files:
+            if key == "__epoch__":
+                continue
             parts = key.split("/")
             node = tree
             for p in parts[:-1]:
@@ -75,3 +78,10 @@ from .keypoints import (describe_keypoints,  # noqa: E402, F401
 from .match import snn_match, snn_match_host  # noqa: E402, F401
 from .export import export_patch_net, load_exported  # noqa: E402, F401
 from .utils import StageTimer, fence, profiler_trace  # noqa: E402, F401
+# The trainers and their data.
+from .models import REGISTRY  # noqa: E402, F401
+from .train import (TrainConfig, make_affnet_train_step,  # noqa: E402, F401
+                    make_descriptor_train_step, make_orinet_train_step,
+                    train_loop)
+from .data import (PairDataset, TotalDatasetsLoader,  # noqa: E402, F401
+                   TripletDataset, load_total_datasets)

@@ -1,5 +1,6 @@
-"""Train-time LAF augmentation: random rotations, tilts and shifts, and the
-warps that apply them and the predicted shapes.
+"""Train-time augmentation: random rotations, tilts and shifts, the warps
+that apply them and the predicted shapes, and the descriptor trainer's
+pair-shared transpose and flip (:func:`fliprot`).
 
 Counterpart of ``affnet_tpu/augmentation.py``.  The base LAF
 [[0.5, 0, 0.5], [0, 0.5, 0.5]] covers the central half of a patch in
@@ -130,3 +131,32 @@ def warp_by_predicted_transform(patches: Tensor, trans: Tensor,
     out = sample_batched(patches, lafs, ps=h, align_corners=align_corners,
                          use_kernel=use_kernel)
     return out[:, st:st + crop_size, st:st + crop_size]
+
+
+def draw_fliprot(generator: torch.Generator) -> Tuple[Tensor, Tensor]:
+    """The random draw of :func:`fliprot`: (do_rot, do_flip), 0-d bool
+    tensors on the generator's device, each true with probability 1/2 (no
+    host sync)."""
+    u = _uniform(2, generator)
+    return u[0] < 0.5, u[1] < 0.5
+
+
+def fliprot_core(img_a: Tensor, img_p: Tensor, do_rot, do_flip
+                 ) -> Tuple[Tensor, Tensor]:
+    """One transpose (``do_rot``), then one horizontal flip (``do_flip``),
+    shared by every pair of the square (N, H, H) batches; the flags are
+    bools or 0-d bool tensors."""
+    rot = torch.as_tensor(do_rot, device=img_a.device)
+    flip = torch.as_tensor(do_flip, device=img_a.device)
+    out = []
+    for x in (img_a, img_p):
+        x = torch.where(rot, x.transpose(1, 2), x)
+        out.append(torch.where(flip, x.flip(2), x))
+    return out[0], out[1]
+
+
+def fliprot(img_a: Tensor, img_p: Tensor, generator: torch.Generator
+            ) -> Tuple[Tensor, Tensor]:
+    """A random transpose and horizontal flip of a pair batch, drawn once
+    for the whole batch (the reference draws them per sample)."""
+    return fliprot_core(img_a, img_p, *draw_fliprot(generator))

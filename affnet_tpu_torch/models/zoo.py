@@ -55,6 +55,7 @@ class PatchNet(nn.Module):
 
     ps = 32
     detach_input_norm = True
+    init_gain = 0.8           # the orthogonal init's gain (cnn.init_params)
     compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, layers):
@@ -179,6 +180,7 @@ class OriNet(PatchNet):
     matrix.  Its ``input_norm`` is not detached."""
 
     detach_input_norm = False
+    init_gain = 0.9
 
     def __init__(self, ps: int = 32):
         super().__init__(_orinet_layers(ps))
@@ -209,3 +211,17 @@ class OriNetFast32(OriNet):
 
     def __init__(self):
         super().__init__(32)
+
+
+class _Registry(dict):
+    """Name -> net class; a name the port lacks raises a KeyError that
+    names the ported ones."""
+
+    def __missing__(self, name):
+        raise KeyError(f"{name!r} is not in the port's zoo, which has "
+                       f"{sorted(self)} (the JAX package's ablation heads "
+                       "and HardNetNarELU are not ported)")
+
+
+REGISTRY = _Registry({net.__name__: net for net in (
+    AffNetFast, OriNetFast, OriNetFast32, HardNet, HardTFeatNet)})

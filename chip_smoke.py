@@ -149,6 +149,25 @@ Phases, each timed and each fatal on failure:
                the three stage lines, a trace naming B1-B4; the export
                round trip of AffNetFast and HardTFeatNet on the card at
                batches 3000 and 517 (within 1e-6 of the module).
+ 16. trainers — the published pipeline (run_me.sh:22-31) through the
+               training programs' main on a PhotoTour-format --dataroot
+               (an npz and a reference-format .pt cache of 2048 synthetic
+               classes x 4 views from the fixture), batch 1024, 13 steps
+               each: HardNet from scratch (train_descriptor, lr 0.1: no B5
+               launch), AffNet against its checkpoint (train_affnet,
+               HardNegC: 2 + 1 B5 forwards and 1 backward per step),
+               OriNet at its defaults against it (train_orinet: 1 + 1 and
+               1), the triplet trainer (train_affnet --loss
+               random_sampling, TripletDataset: 3 + 1 and 1): finite
+               losses, weights and statistics moved, the checkpoint read
+               back into the net, ms per step and pairs/s; B5 at the new
+               sites (the OriNet warp at PS 64 and its rewarp of 2N, the
+               negatives' warp and the rewarp of 3N) bit-identical to its
+               plain version, the rewarps' LAF cotangent equal to its
+               replay, timed beside the plain version, affine_grid +
+               grid_sample and its bound; one OriNet and one triplet step
+               against the plain path on the card; train_loop's eval hook
+               running evaluate_pair with the epoch's net (B1-B4 launch).
 
 Kernel times ("ms") are device times from torch.profiler (CUPTI): the
 card's busy time per call, without the host's launch overhead.  The log
@@ -193,13 +212,16 @@ from affnet_tpu_torch import export, keypoints, load_pretrained, match
 from affnet_tpu_torch.cli import (describe_keypoints, eval_graf, extract_geom,
                                   hesaffbaum, hesaffnet, match_demo,
                                   optimize_shapes, pretrained,
-                                  profile_pipeline)
+                                  profile_pipeline, train_affnet,
+                                  train_descriptor, train_orinet)
 from affnet_tpu_torch.data import (DevicePairDataset, PairDataset,
-                                   synthetic_pairs_from_image)
+                                   TripletDataset, synthetic_pairs_from_image,
+                                   synthetic_pairs_from_images)
 from affnet_tpu_torch.detector import (DetectorConfig,
                                        ScaleSpaceAffinePatchExtractor)
 from affnet_tpu_torch.kernels import build
-from affnet_tpu_torch.models import AffNetFast, HardTFeatNet, OriNetFast32
+from affnet_tpu_torch.models import (AffNetFast, HardNet, HardTFeatNet,
+                                     OriNetFast32, SIFTNet, params_from_jax)
 from affnet_tpu_torch.io_formats import read_ells, write_ells
 from affnet_tpu_torch.models import cnn
 from affnet_tpu_torch.models.cnn import init_params
@@ -222,9 +244,10 @@ from affnet_tpu_torch.ops.scalespace import (build_flat_pyramid,
                                              pyramid_views)
 from affnet_tpu_torch.shape_opt import LAFShapeOptimizer
 from affnet_tpu_torch.train import (TrainConfig, draw_affnet_lafs,
-                                    init_state, make_affnet_train_step,
-                                    make_descriptor, tilt_for_epoch,
-                                    train_loop)
+                                    draw_orinet, init_state, load_checkpoint,
+                                    make_affnet_train_step, make_descriptor,
+                                    make_orinet_train_step, orinet_lafs,
+                                    tilt_for_epoch, train_loop)
 from affnet_tpu_torch.utils import float32_math
 from scripts.profile_detect_stage import stage_profile
 
@@ -1036,11 +1059,15 @@ def _max_rel(got: dict, ref: dict) -> float:
                / max(float(ref[k].abs().max()), 1e-30) for k in ref)
 
 
-def check_plain_step(state, desc_fn, cfg, batch) -> dict:
-    """One step from the same state and the same generator through the
-    kernels and through the plain sampler on the card.  Loss rtol 1e-5,
-    gradients within 1e-3 and parameters after SGD within 1e-5 of each
-    tensor's largest magnitude, BatchNorm statistics within 1e-6."""
+def check_plain_step(state, desc_fn, cfg, batch,
+                     make_step=make_affnet_train_step,
+                     b5=(2, 1, 1)) -> dict:
+    """One step of ``make_step`` from the same state and the same generator
+    through the kernels and through the plain sampler on the card; the
+    kernel run launches ``b5`` = (B5 forwards at PS 64, at PS 32, B5
+    backwards).  Loss rtol 1e-5, gradients within 1e-3 and parameters
+    after SGD within 1e-5 of each tensor's largest magnitude, BatchNorm
+    statistics within 1e-6."""
     model, dev = state.model, batch[0].device
     snap_model = copy.deepcopy(model.state_dict())
     snap_opt = copy.deepcopy(state.optimizer.state_dict())
@@ -1050,7 +1077,7 @@ def check_plain_step(state, desc_fn, cfg, batch) -> dict:
         model.load_state_dict(snap_model)
         state.optimizer.load_state_dict(copy.deepcopy(snap_opt))
         state.step = step0
-        step_fn = make_affnet_train_step(desc_fn, cfg, use_kernels)
+        step_fn = make_step(desc_fn, cfg, use_kernels)
         reset_launch_counts()
         m = step_fn(state, batch, torch.Generator(device=dev).manual_seed(7),
                     tilt_for_epoch(0))
@@ -1062,10 +1089,10 @@ def check_plain_step(state, desc_fn, cfg, batch) -> dict:
             params={k: v for k, v in sd.items() if "running" not in k},
             stats={k: v for k, v in sd.items() if "running" in k}))
     kern, plain = runs
-    require(kern["counts"]["batched_fwd"] == 3
-            and kern["counts"].get("batched_fwd_ps64") == 2
-            and kern["counts"].get("batched_fwd_ps32") == 1
-            and kern["counts"]["batched_bwd"] == 1,
+    require(kern["counts"]["batched_fwd"] == b5[0] + b5[1]
+            and kern["counts"].get("batched_fwd_ps64", 0) == b5[0]
+            and kern["counts"].get("batched_fwd_ps32", 0) == b5[1]
+            and kern["counts"]["batched_bwd"] == b5[2],
             f"plain-step check: kernel launches {kern['counts']}")
     require(plain["counts"]["batched_fwd"] == 0
             and plain["counts"]["batched_bwd"] == 0,
@@ -2675,6 +2702,314 @@ def phase_apps(imgs, device, seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the trainers (the published pipeline, OriNet, triplets)
+# ---------------------------------------------------------------------------
+
+TRAINER_CLASSES, TRAINER_VIEWS = 2048, 4
+TRAINER_BATCH = 1024
+TRAINER_STEPS = TRAIN_WARMUP + TRAIN_TIMED
+# B5 launches per step of each run: (forwards at PS 64, at PS 32, backwards).
+TRAINER_B5 = {"descriptor": (0, 0, 0), "affnet": (2, 1, 1),
+              "orinet": (1, 1, 1), "triplet": (3, 1, 1)}
+
+
+def trainer_images(seed: int) -> list:
+    """Four 640x800 training images from the committed graf fixture: rolled,
+    every other one flipped, with seeded noise (float64, as
+    ``load_train_images`` returns images)."""
+    base = np.load(os.path.join(FIXTURES, "detector_golden_fullres.npz"))["img"]
+    out = []
+    for i in range(4):
+        rng = np.random.RandomState(seed + 100 + i)
+        img = np.roll(base, (rng.randint(base.shape[0]),
+                             rng.randint(base.shape[1])), axis=(0, 1))
+        if i % 2:
+            img = img[:, ::-1]
+        out.append(np.clip(img + rng.normal(0.0, 2.0, img.shape), 0, 255))
+    return out
+
+
+def make_dataroot(root: str, seed: int) -> tuple:
+    """A PhotoTour-format --dataroot: the multi-image synthetic classes of
+    the fixture images (2048 classes x 4 views, 64x64), split into two
+    caches of 1024 classes: an npz and a reference-format .pt, a pickled
+    (patches (N, 1, 64, 64), labels) pair, so load_total_datasets and
+    convert_pt_cache both run.  Returns (patches, labels) as the trainers
+    read them."""
+    patches, labels = synthetic_pairs_from_images(
+        trainer_images(seed), n_classes=TRAINER_CLASSES,
+        views_per_class=TRAINER_VIEWS, seed=seed)
+    half = len(patches) // 2
+    np.savez(os.path.join(root, "a_synthetic.npz"), patches=patches[:half],
+             labels=labels[:half])
+    torch.save((torch.from_numpy(patches[half:, None]),
+                torch.from_numpy(labels[half:] - labels[half])),
+               os.path.join(root, "b_synthetic.pt"))
+    return patches, labels
+
+
+def run_trainer(kind: str, main, argv: list, net_cls, log_dir: str) -> dict:
+    """One training program's main on the card over TRAINER_STEPS batches
+    of 1024 (--n-pairs sized to them, so the cut is in the data), its
+    dataset timed (TimedBatches).  Checks: finite losses; every parameter
+    and BatchNorm statistic finite and moved from the seeded init; exactly
+    TRAINER_B5[kind] B5 launches per step and no other kernel; the
+    checkpoint read back through load_checkpoint into a fresh net, equal to
+    the trained one.  ms per step: host clock over steps 3-12,
+    synchronized, / 10."""
+    modules = (train_affnet, train_orinet, train_descriptor)
+    real = train_affnet.make_dataset
+    timed = {}
+
+    def timed_dataset(args):
+        timed["ds"] = TimedBatches(real(args), TRAIN_WARMUP)
+        return timed["ds"]
+
+    saved = [m.make_dataset for m in modules]
+    for m in modules:
+        m.make_dataset = timed_dataset
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = main(argv + [
+            "--log-dir", log_dir, "--batch-size", str(TRAINER_BATCH),
+            "--n-pairs", str(TRAINER_STEPS * TRAINER_BATCH), "--epochs",
+            "1", "--no-eval"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        for m, f in zip(modules, saved):
+            m.make_dataset = f
+    log(f"trainer {kind}: launches ({TRAINER_STEPS} steps) "
+        f"{json.dumps(counts)}")
+    require(state.step == TRAINER_STEPS, f"trainer {kind}: {state.step} "
+            "steps")
+    n64, n32, nb = (TRAINER_STEPS * k for k in TRAINER_B5[kind])
+    require(counts.get("batched_fwd_ps64", 0) == n64
+            and counts.get("batched_fwd_ps32", 0) == n32
+            and counts["batched_fwd"] == n64 + n32
+            and counts["batched_bwd"] == nb
+            and all(v == 0 for k, v in counts.items()
+                    if not k.startswith("batched_")),
+            f"trainer {kind}: launches {counts}, expected {TRAINER_B5[kind]}"
+            " per step")
+    (run_dir,) = [os.path.join(log_dir, d) for d in os.listdir(log_dir)]
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    require(len(losses) == 2 and bool(np.isfinite(losses).all()),
+            f"trainer {kind}: losses {losses}")
+    trained = {k: v.cpu() for k, v in state.model.state_dict().items()
+               if v.is_floating_point()}
+    init = init_params(net_cls(), torch.Generator().manual_seed(0),
+                       gain=net_cls.init_gain).state_dict()
+    for name, val in trained.items():
+        require(bool(torch.isfinite(val).all()), f"{kind}: {name} not finite")
+        require(not torch.equal(val, init[name]), f"{kind}: {name} did not "
+                "move")
+    ckpt = os.path.join(run_dir, "checkpoint_0.npz")
+    tree, epoch = load_checkpoint(ckpt)
+    back = net_cls()
+    back.load_state_dict(params_from_jax(tree))
+    require(epoch == 1 and all(torch.equal(v, trained[k]) for k, v in
+                               back.state_dict().items() if k in trained),
+            f"trainer {kind}: the checkpoint does not hold the trained net")
+    ds = timed["ds"]
+    step_ms = ds.step_ms()
+    require(len(step_ms) == TRAINER_STEPS, f"{len(step_ms)} step times")
+    ms = ds.window_s * 1e3 / TRAIN_TIMED
+    log(f"trainer {kind}: ms_per_step {ms:.3f} (host clock over steps "
+        f"{TRAIN_WARMUP}..{TRAINER_STEPS - 1}, synchronized, / "
+        f"{TRAIN_TIMED}); pairs_per_s {TRAINER_BATCH / ms * 1e3:.1f}; per "
+        f"step on the card's stream (CUDA events) median "
+        f"{float(np.median(step_ms[TRAIN_WARMUP:])):.3f}; losses "
+        f"{[round(x, 5) for x in losses]}; main wall_s {wall:.3f}")
+    return dict(state=state, counts=counts, losses=losses, ms=ms, ckpt=ckpt,
+                step_ms=step_ms[TRAIN_WARMUP:], wall_s=wall)
+
+
+def _rewarp_lafs(shapes: torch.Tensor, h: int) -> torch.Tensor:
+    """warp_by_predicted_transform's PS 32 LAFs for (N, 2, 2) shapes on
+    h x h patches."""
+    base = torch.tensor([[0.5, 0.0, 0.5], [0.0, 0.5, 0.5]],
+                        device=shapes.device).expand(len(shapes), 2, 3)
+    return torch.cat([(32 / h) * (shapes @ base[:, :, :2]),
+                      base[:, :, 2:]], 2).contiguous()
+
+
+def check_new_b5_sites(ori_model, trip_model, pairs, triplets, seed) -> dict:
+    """B5 at this phase's new sites, on a batch of the runs' data and the
+    trained nets' predictions (copies, in train mode as in the steps): the
+    OriNet step's PS 64 warp of the anchors by rotation x scale with
+    shifts, its PS 32 rewarp of the 2N patches by the predicted rotations;
+    the triplet step's PS 64 warp of the negatives, its PS 32 rewarp of
+    3N.  Each forward bit-identical to its plain version and timed beside
+    it, affine_grid + grid_sample and its bound (check_batched_fwd); the
+    rewarps' backward: LAF cotangent equal to its replay and against
+    autograd (check_batched_bwd)."""
+    dev = pairs[0].device
+    n, h, _ = pairs[0].shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    res = {}
+    lafs64 = orinet_lafs(draw_orinet(n, gen), h, h).contiguous()
+    res["batched_fwd_ori_ps64"] = check_batched_fwd(pairs[0], lafs64, h)
+    rot = cuda_patches.sample_batched_cuda(
+        pairs[0].reshape(n * h, h), lafs64, batched_tables(n, h, h, dev), h,
+        False)
+    st = (h - 32) // 2
+    net = copy.deepcopy(ori_model)
+    with torch.no_grad():
+        R = torch.cat([net(x[:, st:st + 32, st:st + 32])
+                       for x in (rot, pairs[1])])
+    full = torch.cat([rot, pairs[1]])
+    res["batched_fwd_ori_ps32"] = check_batched_fwd(full, _rewarp_lafs(R, h),
+                                                    32)
+    res["batched_bwd_ori"] = check_batched_bwd(full, _rewarp_lafs(R, h),
+                                               seed)
+
+    lafs = draw_affnet_lafs(n, tilt_for_epoch(0), gen, True, negative=True)
+    res["batched_fwd_triplet_ps64"] = check_batched_fwd(triplets[2],
+                                                        lafs[2], h)
+    fulls = [cuda_patches.sample_batched_cuda(
+        x.reshape(n * h, h), laf, batched_tables(n, h, h, dev), h, False)
+        for x, laf in zip(triplets, lafs)]
+    net = copy.deepcopy(trip_model)
+    with torch.no_grad():
+        A = torch.cat([net(x[:, st:st + 32, st:st + 32]) for x in fulls])
+    full = torch.cat(fulls)
+    res["batched_fwd_triplet_ps32"] = check_batched_fwd(
+        full, _rewarp_lafs(A, h), 32)
+    res["batched_bwd_triplet"] = check_batched_bwd(full, _rewarp_lafs(A, h),
+                                                   seed)
+    for key, r in res.items():
+        r["name"] = key
+    return res
+
+
+def check_eval_hook(patches, labels, desc_params, device, seed) -> dict:
+    """train_loop for one epoch of 3 steps at batch 1024 (AffNetFast,
+    HardNegC against the trained HardNet) with an eval_fn that runs
+    eval_graf.evaluate_pair (1000 features, the epoch's net as the shape
+    net, SIFT) on the 640x800 fixture and its seeded homography warp: the
+    hook is called once, after the epoch, with the live net in eval mode,
+    and B1-B4 launch inside it."""
+    img = np.load(os.path.join(FIXTURES, "detector_golden_fullres.npz"))["img"]
+    view2, Hm = warp_homography(torch.from_numpy(img).to(device), seed)
+    view2 = view2.cpu().numpy()
+    calls = []
+
+    def hook(model, epoch):
+        det = ScaleSpaceAffinePatchExtractor(
+            DetectorConfig(num_features=1000, border=5, mr_size=5.192,
+                           num_baum_iters=1, patch_size=32),
+            shape_net=model, desc_net=SIFTNet(patch_size=32), device=device)
+        reset_launch_counts()
+        n_tent, n_true, ratio, _, _, _ = eval_graf.evaluate_pair(
+            det, img, view2, Hm)
+        torch.cuda.synchronize()
+        calls.append(dict(epoch=epoch, model=model, training=model.training,
+                          counts=launch_counts(), tentatives=n_tent,
+                          true=n_true, ratio=ratio))
+
+    cfg = dataclasses.replace(TRAIN_CFG, descriptor="HardNet", seed=seed,
+                              total_epochs=None)
+    ds = DevicePairDataset(PairDataset(patches, labels,
+                                       n_pairs=3 * cfg.batch_size,
+                                       batch_size=cfg.batch_size,
+                                       seed=seed + 2), device)
+    with tempfile.TemporaryDirectory() as log_dir:
+        state = train_loop(AffNetFast(), ds, cfg, log_dir=log_dir,
+                           desc_params=desc_params, device=device,
+                           eval_fn=hook)
+    require(len(calls) == 1 and calls[0]["epoch"] == 0
+            and calls[0]["model"] is state.model
+            and not calls[0]["training"] and state.model.training,
+            f"eval hook: calls {[(c['epoch'], c['training']) for c in calls]}")
+    c = calls[0]
+    require(all(c["counts"][k] > 0 for k in EXTRACTION_KERNELS),
+            f"eval hook: B1-B4 did not all launch {c['counts']}")
+    log(f"eval hook (train_loop, 3 steps, then evaluate_pair at 1000 "
+        f"features on the fixture and its warp): {c['tentatives']} "
+        f"tentatives, {c['true']} true, ratio {c['ratio']:.4f}; launches "
+        f"{json.dumps(c['counts'])}")
+    return c
+
+
+def phase_trainers(device, seed: int) -> dict:
+    """Phase 16: the published pipeline (run_me.sh:22-31) through the
+    training programs' main at batch 1024, 13 steps each: HardNet from
+    scratch (train_descriptor, lr 0.1, no B5), AffNet against that
+    checkpoint (train_affnet, HardNegC, lr 0.005), the OriNet trainer at
+    its defaults against it (train_orinet), and the triplet trainer
+    (train_affnet --loss random_sampling, TripletDataset); B5 at the new
+    sites against its plain version; one OriNet and one triplet step
+    against the plain path on the card; the per-epoch eval hook."""
+    t = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "6Brown")
+        os.makedirs(root)
+        patches, labels = make_dataroot(root, seed)
+        log(f"trainers: {len(patches)} patches of {TRAINER_CLASSES} classes "
+            f"(.npz + .pt) in {time.perf_counter() - t:.3f} s")
+        data = ["--dataroot", root]
+        res["descriptor"] = run_trainer(
+            "descriptor", train_descriptor.main, data + [
+                "--arch", "HardNet", "--loss", "HardNet", "--lr", "0.1"],
+            HardNet, os.path.join(tmp, "desc"))
+        require(os.path.exists(os.path.join(root, "b_synthetic.npz")),
+                "convert_pt_cache wrote no npz")
+        hardnet = ["--descriptor", "HardNet", "--desc-weights",
+                   res["descriptor"]["ckpt"]]
+        res["affnet"] = run_trainer(
+            "affnet", train_affnet.main, data + hardnet + [
+                "--loss", "HardNegC", "--lr", "0.005"],
+            AffNetFast, os.path.join(tmp, "affnet"))
+        res["orinet"] = run_trainer("orinet", train_orinet.main,
+                                    data + hardnet, OriNetFast32,
+                                    os.path.join(tmp, "orinet"))
+        res["triplet"] = run_trainer(
+            "triplet", train_affnet.main, data + hardnet + [
+                "--loss", "random_sampling", "--lr", "0.005"],
+            AffNetFast, os.path.join(tmp, "triplet"))
+        desc_params, _ = load_checkpoint(res["descriptor"]["ckpt"])
+    log(f"phase trainers runs wall_s: {time.perf_counter() - t:.3f}")
+
+    t = time.perf_counter()
+    pairs = next(iter(DevicePairDataset(PairDataset(
+        patches, labels, n_pairs=TRAINER_BATCH, batch_size=TRAINER_BATCH,
+        seed=seed + 1), device).batches()))
+    triplets = tuple(torch.from_numpy(x).to(device) for x in next(iter(
+        TripletDataset(patches, labels, TRAINER_BATCH, TRAINER_BATCH,
+                       seed=seed + 1).batches())))
+    res["sites"] = check_new_b5_sites(res["orinet"]["state"].model,
+                                      res["triplet"]["state"].model,
+                                      pairs, triplets, seed)
+    desc_fn = make_descriptor("HardNet", desc_params, device)
+    for kind, make_step, batch in (("orinet", make_orinet_train_step, pairs),
+                                   ("triplet", make_affnet_train_step,
+                                    triplets)):
+        st = res[kind]["state"]
+        cfg = TrainConfig(arch=type(st.model).__name__, descriptor="HardNet",
+                          loss="HardNet" if kind == "orinet"
+                          else "random_sampling", lr=0.005,
+                          batch_size=TRAINER_BATCH,
+                          n_pairs=TRAINER_STEPS * TRAINER_BATCH, epochs=1)
+        ps = check_plain_step(st, desc_fn, cfg, batch, make_step,
+                              TRAINER_B5[kind])
+        res[kind]["plain_step"] = ps
+        log(f"trainer {kind}: plain-path step on the card: loss "
+            f"{ps['loss']:.7f} vs {ps['loss_plain']:.7f}; max |diff| / max "
+            f"|value|: grads {ps['grads']:.3g}, params {ps['params']:.3g}; "
+            f"BN statistics max |diff| {ps['stats']:.3g}")
+    log(f"phase trainers checks wall_s: {time.perf_counter() - t:.3f}")
+    t = time.perf_counter()
+    res["hook"] = check_eval_hook(patches, labels, desc_params, device, seed)
+    log(f"phase trainers eval hook wall_s: {time.perf_counter() - t:.3f}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2773,7 +3108,9 @@ def run_phases(args) -> int:
     baum = phase_hesaffbaum(imgs, device)
     onepass = phase_onepass(imgs, device)
     apps = phase_apps(imgs, device, args.seed)
-    for r in (baum["site"], onepass["refine"], apps["site"]):
+    trainers = phase_trainers(device, args.seed)
+    for r in (baum["site"], onepass["refine"], apps["site"],
+              *trainers["sites"].values()):
         log(f"kernel {r['name']} {r['shape']}: max_abs_err {r['err']:.3g} "
             f"ms {r['ms']:.4f} event_median_ms {r['event_ms']:.4f} "
             f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']} "
@@ -2861,6 +3198,17 @@ def run_phases(args) -> int:
                  "affnet_tpu_torch/csrc/patches.cu",
                  "affnet_tpu/ops/pallas_patches.py:94 via "
                  "affnet_tpu/keypoints.py:67"))
+    # B5 forward at the OriNet step's sites and the triplet step's, each
+    # with that run's launches at its patch size (phase 16).
+    for kind in ("ori", "triplet"):
+        for ps in (64, 32):
+            rows.append((trainers["sites"][f"batched_fwd_{kind}_ps{ps}"],
+                         trainers["orinet" if kind == "ori" else kind]
+                         ["counts"][f"batched_fwd_ps{ps}"],
+                         "affnet_tpu_torch/csrc/patches.cu",
+                         "affnet_tpu/ops/pallas_patches.py:94 via :665 ("
+                         + ("affnet_tpu/train.py:315-341" if kind == "ori"
+                            else "affnet_tpu/train.py:225-232") + ")"))
     kernels = [{
         "name": r["name"], "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,

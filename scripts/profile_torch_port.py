@@ -7,7 +7,12 @@ shape-optimization path.
 seeded images, ``--path fast`` the same in fast mode (bf16 nets and
 sampler, float16 descriptors); ``--path train`` runs chip_smoke.py's
 training configuration (AffNetFast at batch 1024 against HardTFeatNet,
-HardNegC, SGD) for a few steps after warm-up; ``--path shape`` its
+HardNegC, SGD) for a few steps after warm-up, and ``--path descriptor``,
+``orinet`` or ``triplet`` chip_smoke.py phase 16's other training steps
+at batch 1024 (HardNet from scratch at lr 0.1; OriNetFast32 with the
+HardNet loss; the triplet AffNet step with the random-sampling loss on
+host-built TripletDataset batches, as the program runs it; the last two
+against a seeded HardNet descriptor); ``--path shape`` its
 shape-optimization configuration (200 LAF pairs on the 640x800 fixture,
 SIFT, HardNegC, Adam lr 2.0) for --steps steps after 10 of warm-up.  Under
 torch.profiler it prints: wall ms per image or step, device-busy ms (the
@@ -16,7 +21,8 @@ kind (convolutions, the patch samplers, BatchNorm, copies, other) and by
 kernel name.  Writes the Chrome trace to --trace (default
 port_trace.json).
 
-    python3 scripts/profile_torch_port.py [--path extract|fast|train|shape]
+    python3 scripts/profile_torch_port.py [--path extract|fast|train|shape|
+        descriptor|orinet|triplet]
         [--seed 0] [--images 2] [--steps 5] [--trace F]
 
 Needs a CUDA card; imports torch, numpy and the standard library only.
@@ -37,12 +43,14 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 from affnet_tpu_torch import load_pretrained  # noqa: E402
-from affnet_tpu_torch.data import DevicePairDataset, PairDataset  # noqa: E402
+from affnet_tpu_torch.data import (DevicePairDataset, PairDataset,  # noqa: E402
+                                   TripletDataset)
 from affnet_tpu_torch.detector import ScaleSpaceAffinePatchExtractor  # noqa: E402
-from affnet_tpu_torch.models import AffNetFast  # noqa: E402
+from affnet_tpu_torch.models import (AffNetFast, HardNet,  # noqa: E402
+                                     OriNetFast32, params_to_jax)
 from affnet_tpu_torch.models.cnn import init_params  # noqa: E402
-from affnet_tpu_torch.train import (init_state,  # noqa: E402
-                                    make_affnet_train_step, make_descriptor)
+from affnet_tpu_torch.train import (STEP_MAKERS, init_state,  # noqa: E402
+                                    make_descriptor)
 
 
 def busy_ms(events) -> float:
@@ -82,30 +90,59 @@ def device_time_by_kind(events) -> dict:
     return out
 
 
+# --path -> (net, train_loop mode, loss, lr, frozen descriptor): the
+# training steps of chip_smoke.py phases 6 and 16.
+TRAIN_PATHS = {
+    "train": (AffNetFast, "affnet", "HardNegC", 0.005, "TFeat"),
+    "descriptor": (HardNet, "descriptor", "HardNet", 0.1, None),
+    "orinet": (OriNetFast32, "orinet", "HardNet", 0.005, "HardNet"),
+    "triplet": (AffNetFast, "affnet", "random_sampling", 0.005, "HardNet"),
+}
+
+
 def profile_train(args):
-    """(profile, wall ms per step) of --steps training steps."""
-    cfg = chip_smoke.TRAIN_CFG
+    """(profile, wall ms per step) of --steps training steps, each batch
+    built as the step's program builds it (the host-built triplets copied
+    to the card inside the timed steps)."""
+    net_cls, mode, loss, lr, desc = TRAIN_PATHS[args.path]
+    cfg = chip_smoke.dataclasses.replace(
+        chip_smoke.TRAIN_CFG, arch=net_cls.__name__, loss=loss, lr=lr,
+        descriptor=desc or "pixels")
     n = 3 + args.steps
     patches, labels = chip_smoke.make_train_patches(args.seed)
-    ds = DevicePairDataset(PairDataset(patches, labels,
-                                       n_pairs=n * cfg.batch_size,
-                                       batch_size=cfg.batch_size,
-                                       seed=args.seed), "cuda")
-    net = init_params(AffNetFast(), torch.Generator().manual_seed(args.seed))
+    if args.path == "triplet":
+        ds = TripletDataset(patches, labels, n * cfg.batch_size,
+                            cfg.batch_size, seed=args.seed)
+    else:
+        ds = DevicePairDataset(PairDataset(patches, labels,
+                                           n_pairs=n * cfg.batch_size,
+                                           batch_size=cfg.batch_size,
+                                           seed=args.seed), "cuda")
+    net = init_params(net_cls(), torch.Generator().manual_seed(args.seed),
+                      gain=net_cls.init_gain)
     state = init_state(net.cuda().train(), cfg)
-    step = make_affnet_train_step(
-        make_descriptor("TFeat", load_pretrained("HardTFeatNet"), "cuda"),
+    params = (load_pretrained("HardTFeatNet") if desc == "TFeat" else
+              params_to_jax(init_params(HardNet(), torch.Generator()
+                                        .manual_seed(args.seed + 1))
+                            .state_dict()))
+    step = STEP_MAKERS[mode](
+        None if desc is None else make_descriptor(desc, params, "cuda"),
         cfg)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    batches = list(ds.batches())
-    for batch in batches[:3]:                        # build + warm up
+    batches = iter(ds.batches())
+
+    def run_step():
+        batch = tuple(torch.as_tensor(x, device="cuda") for x in next(batches))
         step(state, batch, gen, 3.0)
+
+    for _ in range(3):                               # build + warm up
+        run_step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for batch in batches[3:]:
-            step(state, batch, gen, 3.0)
+        for _ in range(args.steps):
+            run_step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / args.steps
     return prof, wall, args.steps, "step"
@@ -151,8 +188,8 @@ def profile_extract(args):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("extract", "fast", "train", "shape"),
-                    default="extract")
+    ap.add_argument("--path", choices=("extract", "fast", "shape",
+                                       *TRAIN_PATHS), default="extract")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--images", type=int, default=2)
     ap.add_argument("--steps", type=int, default=5)
@@ -164,8 +201,8 @@ def main() -> int:
         return 2
     # TF32 stays off: the extractor and the training step pin float32 math
     # themselves (affnet_tpu_torch.utils.float32_math).
-    run = {"train": profile_train, "shape": profile_shape}.get(
-        args.path, profile_extract)
+    run = (profile_train if args.path in TRAIN_PATHS
+           else {"shape": profile_shape}.get(args.path, profile_extract))
     prof, wall, count, unit = run(args)
     busy = busy_ms(prof.events()) / count
     print(f"device: {torch.cuda.get_device_name(0)}")

@@ -920,3 +920,122 @@ def test_export_round_trip_on_card(dev):
                 got = loaded(x)
             assert got.device.type == "cuda"
             assert float((got - ref).abs().max()) <= 1e-6, name
+
+
+# ---------------------------------------------------------------------------
+# The trainers' new B5 sites: the OriNet step and the triplet step
+# ---------------------------------------------------------------------------
+
+def _train_views(dev, views, n=64, seed=0):
+    """``views`` stacks of n 64x64 patches in [0, 1] (one class per row)
+    from the committed fixture, on the card."""
+    from affnet_tpu_torch.data import synthetic_pairs_from_image
+    img = np.load(os.path.join(FIX, "detector_golden_fullres.npz"))["img"]
+    patches, _ = synthetic_pairs_from_image(img, n_classes=n,
+                                            views_per_class=views, seed=seed)
+    return tuple(torch.from_numpy(patches[v::views].astype(np.float32)
+                                  / 255.0).to(dev) for v in range(views))
+
+
+def _site_warps(dev, site):
+    """(the site's PS 64 warp: images, LAFs; the PS 32 rewarp's full
+    patches and (N, 2, 2) shapes from an initialized net in train mode)."""
+    from affnet_tpu_torch import train
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if site == "ori":
+        a, p = _train_views(dev, 2)
+        lafs = train.orinet_lafs(train.draw_orinet(len(a), gen), 64, 64)
+        fulls = [batched_sampler.sample_batched(a, lafs, ps=64), p]
+        imgs, net = a, OriNetFast32()
+    else:
+        views = _train_views(dev, 3)
+        views = (views[0], views[1], views[2].flip(0))   # other classes
+        all_lafs = train.draw_affnet_lafs(len(views[0]), 3.0, gen, True,
+                                          negative=True)
+        fulls = [batched_sampler.sample_batched(x, laf, ps=64)
+                 for x, laf in zip(views, all_lafs)]
+        imgs, lafs, net = views[2], all_lafs[2], AffNetFast()
+    net = init_params(net, torch.Generator().manual_seed(0),
+                      gain=net.init_gain).to(dev).train()
+    with torch.no_grad():
+        shapes = torch.cat([net(f[:, 16:48, 16:48]) for f in fulls])
+    return imgs, lafs, torch.cat(fulls), shapes
+
+
+@pytest.mark.parametrize("site", ["ori", "triplet"])
+def test_batched_kernel_at_the_trainer_sites(dev, site):
+    """B5 at the OriNet step's sites (the anchors' PS 64 warp by rotation x
+    scale with shifts; the PS 32 rewarp of the 2N patches by the predicted
+    rotations) and the triplet step's (the negatives' PS 64 warp; the
+    rewarp of 3N): forwards bit for bit against the plain version, the
+    rewarp's LAF cotangent equal to its replay."""
+    from affnet_tpu_torch.augmentation import warp_by_predicted_transform
+    imgs, lafs, full, shapes = _site_warps(dev, site)
+    before = cuda_patches.launches_batched_ps.get(64, 0)
+    got = batched_sampler.sample_batched(imgs, lafs, ps=64)
+    assert cuda_patches.launches_batched_ps[64] == before + 1
+    assert torch.equal(got, extract_patches_batched(imgs, lafs, ps=64))
+    assert torch.equal(warp_by_predicted_transform(full, shapes, 32),
+                       warp_by_predicted_transform(full, shapes, 32,
+                                                   use_kernel=False))
+    base = torch.tensor([[0.5, 0.0, 0.5], [0.0, 0.5, 0.5]],
+                        device=dev).expand(len(full), 2, 3)
+    lafs32 = torch.cat([0.5 * (shapes @ base[:, :, :2]), base[:, :, 2:]], 2)
+    g = 2 * torch.rand((len(full), 32, 32), device=dev) - 1
+    lf = lafs32.clone().requires_grad_(True)
+    before = cuda_patches.launches_bwd
+    (batched_sampler.sample_batched(full, lf, ps=32) * g).sum().backward()
+    assert cuda_patches.launches_bwd == before + 1
+    n, h, w = full.shape
+    assert torch.equal(lf.grad, laf_cotangent_replay(
+        full.reshape(n * h, w), lafs32, *batched_tables(n, h, w, dev), g,
+        ps=32))
+
+
+@pytest.mark.parametrize("kind", ["orinet", "triplet"])
+def test_trainer_step_kernels_vs_plain(dev, kind):
+    """One OriNet step and one triplet AffNet step (HardTFeatNet frozen)
+    through the kernels and through the plain sampler on the card, from
+    the same state and generator: the kernel step launches (1 + 1, 1) and
+    (3 + 1, 1) B5 forwards and backwards; loss rtol 1e-5, gradients within
+    1e-3 and parameters after SGD within 1e-5 of each tensor's largest
+    magnitude, BatchNorm statistics within 1e-6 (chip_smoke.py's
+    tolerances)."""
+    from affnet_tpu_torch import train
+    from affnet_tpu_torch.ops import reset_launch_counts
+    views = _train_views(dev, 2 if kind == "orinet" else 3, n=128)
+    if kind == "triplet":
+        views = (views[0], views[1], views[2].flip(0))
+    cfg = train.TrainConfig(
+        arch="OriNetFast32" if kind == "orinet" else "AffNetFast",
+        descriptor="TFeat", lr=0.005, batch_size=128, n_pairs=128 * 13,
+        loss="HardNet" if kind == "orinet" else "random_sampling")
+    desc = train.make_descriptor("TFeat", load_pretrained("HardTFeatNet"),
+                                 dev)
+    make = (train.make_orinet_train_step if kind == "orinet"
+            else train.make_affnet_train_step)
+    runs = []
+    for use_kernels in (True, False):
+        net = OriNetFast32() if kind == "orinet" else AffNetFast()
+        net = init_params(net, torch.Generator().manual_seed(0),
+                          gain=net.init_gain).to(dev).train()
+        state = train.init_state(net, cfg)
+        reset_launch_counts()
+        m = make(desc, cfg, use_kernels)(
+            state, views, torch.Generator(device=dev).manual_seed(7), 3.0)
+        runs.append((float(m["loss"]), launch_counts(),
+                     {n: p.grad.clone() for n, p in net.named_parameters()},
+                     {k: v.clone() for k, v in net.state_dict().items()
+                      if v.is_floating_point()}))
+    (lk, ck, gk, sk), (lp, cp, gp, sp) = runs
+    n64, n32 = (1, 1) if kind == "orinet" else (3, 1)
+    assert (ck.get("batched_fwd_ps64"), ck.get("batched_fwd_ps32"),
+            ck["batched_bwd"]) == (n64, n32, 1)
+    assert cp["batched_fwd"] == 0 and cp["batched_bwd"] == 0
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for k in gp:
+        assert float((gk[k] - gp[k]).abs().max()) <= 1e-3 * float(
+            gp[k].abs().max()), k
+    for k in sp:
+        tol = 1e-6 if "running" in k else 1e-5 * float(sp[k].abs().max())
+        assert float((sk[k] - sp[k]).abs().max()) <= tol, k
