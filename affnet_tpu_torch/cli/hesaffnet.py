@@ -13,11 +13,12 @@ Usage: python -m affnet_tpu_torch.cli.hesaffnet img.png out.txt [nfeats]
 
 ``input_image`` may list several images, comma-separated.  Without
 ``--mesh`` the program runs the first.  With ``--mesh N`` (any N >= 1) and
-more than one image it runs every image in turn on the one card and writes
-``{base}_{i}{ext}`` for image i, as JAX's bulk mode does; the images must
-share one size (the program refuses mixed sizes, as JAX does).  JAX shards
-that mode over an N-device mesh; the port's sharding over devices waits
-for its data-parallel runner, so N selects the mode and nothing else.
+more than one image it deals the images over ``min(N, cards)`` cards, one
+extractor replica each (``parallel.make_sharded_image_pipeline``; with
+``--device cpu``, N CPU replicas), prints the number used on stderr, and
+writes ``{base}_{i}{ext}`` for image i, as JAX's bulk mode does; each
+image is its own program, so the files do not depend on N.  The images
+must share one size (the program refuses mixed sizes, as JAX does).
 
 ``--max-keypoints`` caps top-k mode, and threshold mode in bulk mode only:
 a single image keeps every survivor, which is what the JAX program returns
@@ -49,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 from typing import Dict, Tuple
 
 import numpy as np
@@ -58,6 +60,7 @@ from ..detector import DetectorConfig, ScaleSpaceAffinePatchExtractor
 from ..io_formats import write_ells
 from ..laf import lafs_to_ells
 from ..models import AffNetFast, OriNetFast32
+from ..parallel import make_mesh, make_sharded_image_pipeline
 from . import pretrained
 
 
@@ -119,8 +122,8 @@ def main(argv=None) -> None:
                         help="bf16 patch sampling and nets (float32 "
                              "detection)")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="bulk mode: run comma-separated same-size "
-                             "images in turn on the one card, one output "
+                        help="bulk mode: deal comma-separated same-size "
+                             "images over min(N, cards) cards, one output "
                              "file each")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu (the plain versions)")
@@ -137,13 +140,25 @@ def main(argv=None) -> None:
     det = make_extractor(args.nfeats, args.topk, args.th,
                          args.max_keypoints, args.do_ori, args.fast,
                          args.device)
-    if bulk:
-        base, ext = os.path.splitext(args.output_fname)
-        fnames = [f"{base}_{i}{ext}" for i in range(len(imgs))]
+    if not bulk:
+        ells, _ = image_to_ells(det, imgs[0], args.do_ori)
+        write_ells(args.output_fname, ells)
+        print(f"{len(ells)} affine regions -> {args.output_fname}")
+        return
+    if det.device.type == "cuda":
+        devices = make_mesh(min(args.mesh, torch.cuda.device_count()))
+        print(f"--mesh {args.mesh}: {len(devices)} card(s)", file=sys.stderr)
     else:
-        fnames = [args.output_fname]
-    for img, fname in zip(imgs, fnames):
-        ells, _ = image_to_ells(det, img, args.do_ori, capped=bulk)
+        devices = make_mesh(args.mesh, "cpu")
+        print(f"--mesh {args.mesh}: {len(devices)} CPU replica(s)",
+              file=sys.stderr)
+    pipeline = make_sharded_image_pipeline(det, *imgs[0].shape, devices,
+                                           do_ori=args.do_ori,
+                                           describe=False)
+    base, ext = os.path.splitext(args.output_fname)
+    for i, out in enumerate(pipeline(imgs)):
+        fname = f"{base}_{i}{ext}"
+        ells = lafs_to_ells(torch.from_numpy(out["lafs"])).numpy()
         write_ells(fname, ells)
         print(f"{len(ells)} affine regions -> {fname}")
 

@@ -9,9 +9,13 @@ Counterpart of ``affnet_tpu/cli/train_affnet.py`` with its flags
 dataset exists.  Runs on the card unless ``--device cpu`` asks for the
 CPU.
 
-One card: ``--mesh`` takes 0 or 1; sharding the batch over N > 1 devices
-(the JAX package's mesh) waits for the port's DDP trainer and is refused.
-``--arch`` takes the AffNet nets of the port's zoo (AffNetFast).
+``--mesh N`` (N >= 1) shards each batch over N ranks, one card each,
+under NCCL (``parallel.spawn``; ``--device cpu``: N CPU ranks over gloo),
+with the one-device step's semantics on the global batch (hardest
+negatives over the global batch, global BatchNorm statistics); rank 0
+writes the logs and checkpoints.  N = 1 runs in this process, in a group
+of one.  N above the cards present is refused.  ``--arch`` takes the
+AffNet nets of the port's zoo (AffNetFast).
 
 Usage: python -m affnet_tpu_torch.cli.train_affnet --dataroot dataset/6Brown \\
           --lr 0.005 --n-pairs 10000000 --batch-size 1024 \\
@@ -23,14 +27,20 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import numpy as np
+import torch
 
 from .. import data as D
-from .. import load_params_npz, load_pretrained
+from .. import load_params_npz, load_pretrained, parallel
 from ..models import REGISTRY, AffNetFast
 from ..train import TrainConfig, load_checkpoint, save_checkpoint, train_loop
 from . import eval_graf
+
+
+MESH_HELP = ("shard each batch over N ranks, one card each (NCCL; gloo "
+             "CPU ranks with --device cpu); 0: no process group")
 
 
 def build_parser():
@@ -57,9 +67,7 @@ def build_parser():
                    choices=["HardNet", "HardNegC", "PosDist",
                             "random_sampling"])
     p.add_argument("--arch", type=str, default="AffNetFast")
-    p.add_argument("--mesh", type=int, default=0,
-                   help="0 or 1: one device (sharding over N > 1 devices "
-                        "is not ported)")
+    p.add_argument("--mesh", type=int, default=0, help=MESH_HELP)
     p.add_argument("--synthetic", action="store_true",
                    help="train on offline synthetic pairs (no dataset needed)")
     p.add_argument("--gen-tilt", type=float, default=3.0,
@@ -90,14 +98,26 @@ def build_parser():
     return p
 
 
-def check_mesh(mesh: int) -> None:
-    """One device only: ``--mesh`` N > 1 is refused, never run on one
-    card."""
-    if mesh > 1:
-        raise SystemExit(
-            f"--mesh {mesh}: sharding the batch over devices is not ported "
-            "(ROADMAP Queue A, 'parallel.py as torch DDP'); use --mesh 0 "
-            "or 1 for one device")
+def run_ranks(args, rank_main, argv):
+    """``--mesh N`` >= 1: ``rank_main(rank, device, group, argv)`` on N
+    ranks (``parallel.spawn``), one card each, or CPU ranks under
+    ``--device cpu``; returns rank 0's training state.  N above the cards
+    present is refused."""
+    if torch.device(args.device).type == "cuda":
+        count = torch.cuda.device_count()
+        if args.mesh > count:
+            raise SystemExit(
+                f"--mesh {args.mesh}: one card per rank, but {count} CUDA "
+                "cards are present (pass --device cpu for CPU ranks)")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return parallel.spawn(rank_main, args.mesh, args.device, args=(argv,))
+
+
+def rank_args(parser, argv, device):
+    """A rank's arguments: ``argv`` parsed, on the rank's ``device``."""
+    args = parser.parse_args(argv)
+    args.device = str(device)
+    return args
 
 
 def net_for(arch: str, kind: type, trainer: str):
@@ -179,7 +199,17 @@ def make_eval_fn(args, log_dir: str, eval_argv):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_mesh(args.mesh)
+    if args.mesh:
+        return run_ranks(args, _rank_main, argv)
+    return train(args)
+
+
+def _rank_main(rank, device, group, argv):
+    return train(rank_args(build_parser(), argv, device), mesh=group)
+
+
+def train(args, mesh=None):
+    """The program on ``args``; ``mesh``: this rank's process group."""
     model = net_for(args.arch, AffNetFast, "AffNet trainer")
     cfg = TrainConfig(arch=args.arch, descriptor=args.descriptor,
                       loss=args.loss, lr=args.lr, wd=args.wd,
@@ -206,7 +236,7 @@ def main(argv=None):
     return train_loop(model, dataset, cfg, log_dir=log_dir,
                       desc_params=desc_params, start_params=start_params,
                       start_epoch=start_epoch, device=args.device,
-                      eval_fn=eval_fn)
+                      eval_fn=eval_fn, mesh=mesh)
 
 
 if __name__ == "__main__":

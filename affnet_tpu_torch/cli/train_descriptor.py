@@ -6,7 +6,8 @@ the HardNet loss (Losses.py:113-180) on the pair data of the other
 trainers, a pair-shared transpose and flip, the reference's SGD and
 linear LR decay.  The per-epoch eval runs the graf pipeline with the
 trained descriptor and the shipped AffNet.  Runs on the card unless
-``--device cpu`` asks for the CPU; ``--mesh`` takes 0 or 1 (one device).
+``--device cpu`` asks for the CPU; ``--mesh N`` shards each batch over N
+ranks as in train_affnet.
 
 Usage:
   python -m affnet_tpu_torch.cli.train_descriptor --synthetic --epochs 4 \\
@@ -20,7 +21,8 @@ import os
 
 from ..models import REGISTRY
 from ..train import TrainConfig, load_checkpoint, train_loop
-from .train_affnet import check_mesh, make_dataset, make_eval_fn
+from .train_affnet import (MESH_HELP, make_dataset, make_eval_fn, rank_args,
+                           run_ranks)
 
 
 def build_parser():
@@ -43,9 +45,7 @@ def build_parser():
                    choices=["HardNet", "HardNegC", "PosDist"])
     p.add_argument("--arch", type=str, default="HardNet",
                    choices=["HardNet", "HardTFeatNet"])
-    p.add_argument("--mesh", type=int, default=0,
-                   help="0 or 1: one device (sharding over N > 1 devices "
-                        "is not ported)")
+    p.add_argument("--mesh", type=int, default=0, help=MESH_HELP)
     p.add_argument("--synthetic", action="store_true",
                    help="train on offline synthetic pairs (no dataset needed)")
     p.add_argument("--gen-tilt", type=float, default=3.0,
@@ -71,7 +71,17 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_mesh(args.mesh)
+    if args.mesh:
+        return run_ranks(args, _rank_main, argv)
+    return train(args)
+
+
+def _rank_main(rank, device, group, argv):
+    return train(rank_args(build_parser(), argv, device), mesh=group)
+
+
+def train(args, mesh=None):
+    """The program on ``args``; ``mesh``: this rank's process group."""
     model = REGISTRY[args.arch]()
     cfg = TrainConfig(arch=args.arch, descriptor="pixels", loss=args.loss,
                       lr=args.lr, wd=args.wd, batch_size=args.batch_size,
@@ -97,7 +107,7 @@ def main(argv=None):
     return train_loop(model, dataset, cfg, log_dir=log_dir,
                       start_params=start_params, start_epoch=start_epoch,
                       device=args.device, mode="descriptor",
-                      eval_fn=eval_fn)
+                      eval_fn=eval_fn, mesh=mesh)
 
 
 if __name__ == "__main__":

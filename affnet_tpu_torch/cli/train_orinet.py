@@ -4,8 +4,9 @@ Counterpart of ``affnet_tpu/cli/train_orinet.py`` (reference:
 train_OriNet_test_on_graffity.py): a random rotation x scale 0.9-1.2 warp
 with center shifts of the anchors, the descriptor loss on the patches
 rewarped by the predicted rotations (or ``Geom``).  The flags are
-train_affnet's, with the defaults ``--arch OriNetFast32 --loss HardNet``;
-``--arch`` takes the OriNet nets of the port's zoo.
+train_affnet's (``--mesh N`` included), with the defaults ``--arch
+OriNetFast32 --loss HardNet``; ``--arch`` takes the OriNet nets of the
+port's zoo.
 
 Usage: python -m affnet_tpu_torch.cli.train_orinet --dataroot dataset/6Brown \\
           --descriptor HardNet --desc-weights hardnet.npz --batch-size 1024
@@ -17,15 +18,29 @@ import os
 
 from ..models import OriNet
 from ..train import TrainConfig, load_checkpoint, train_loop
-from .train_affnet import (build_parser, check_mesh, descriptor_params,
-                           make_dataset, make_eval_fn, net_for)
+from .train_affnet import (build_parser, descriptor_params, make_dataset,
+                           make_eval_fn, net_for, rank_args, run_ranks)
+
+
+def orinet_parser():
+    parser = build_parser()
+    parser.set_defaults(arch="OriNetFast32", loss="HardNet")
+    return parser
 
 
 def main(argv=None):
-    parser = build_parser()
-    parser.set_defaults(arch="OriNetFast32", loss="HardNet")
-    args = parser.parse_args(argv)
-    check_mesh(args.mesh)
+    args = orinet_parser().parse_args(argv)
+    if args.mesh:
+        return run_ranks(args, _rank_main, argv)
+    return train(args)
+
+
+def _rank_main(rank, device, group, argv):
+    return train(rank_args(orinet_parser(), argv, device), mesh=group)
+
+
+def train(args, mesh=None):
+    """The program on ``args``; ``mesh``: this rank's process group."""
     model = net_for(args.arch, OriNet, "OriNet trainer")
     cfg = TrainConfig(arch=args.arch, descriptor=args.descriptor,
                       loss=args.loss, lr=args.lr, wd=args.wd,
@@ -50,7 +65,7 @@ def main(argv=None):
     return train_loop(model, dataset, cfg, log_dir=log_dir,
                       desc_params=desc_params, start_params=start_params,
                       start_epoch=start_epoch, device=args.device, ori=True,
-                      eval_fn=eval_fn)
+                      eval_fn=eval_fn, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """Patch datasets of the trainers.
 
-Counterparts of ``affnet_tpu/data.py`` but for the HPatches readers
-(``read_patch_file``, ``HPatchesDM``): the PhotoTour (Brown) readers and
+Counterparts of ``affnet_tpu/data.py``: the PhotoTour (Brown) readers and
 caches, pair and triplet generation, the pair and triplet datasets, the
-concatenation of every cache in a directory, and the offline synthetic
-patch classes.  All but :class:`DevicePairDataset` are numpy and draw from
+concatenation of every cache in a directory, the HPatches patch-sheet
+reader and pair dataset (``read_patch_file``, ``HPatchesDM``), and the
+offline synthetic patch classes.  All but :class:`DevicePairDataset` are numpy and draw from
 the same ``np.random.RandomState`` stream in the same order as the JAX
 package, so a seed gives the same pairs, triplets, patches and flips bit
 for bit.  :class:`DevicePairDataset` keeps the uint8 patch store on the
@@ -15,6 +15,7 @@ that need it.
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -354,6 +355,90 @@ class TotalDatasetsLoader(PairDataset):
                  batch_size: int = 128, fliprot: bool = True, seed: int = 0):
         patches, labels = load_total_datasets(datasets_path)
         super().__init__(patches, labels, n_pairs, batch_size, fliprot, seed)
+
+
+# ---------------------------------------------------------------------------
+# HPatches patch sheets (the reference's dataset.py:28-192)
+# ---------------------------------------------------------------------------
+
+def read_patch_file(fname: str, patch_w: int = 65, patch_h: int = 65,
+                    start_idx: int = 0):
+    """Read one HPatches sheet (a grid of ``patch_h`` x ``patch_w`` cells,
+    grey as the mean of RGB) and skip blank or flat cells; a row of the
+    grid that keeps fewer than two cells is dropped.  Returns (patches
+    uint8 (N, patch_h, patch_w), the indices of each kept row's patches
+    from ``start_idx``, the last index)."""
+    from PIL import Image
+    img = Image.open(fname).convert("RGB")
+    width, height = img.size
+    if height % patch_h or width % patch_w:
+        raise ValueError(f"{fname}: {width}x{height} is not a grid of "
+                         f"{patch_w}x{patch_h} cells")
+    arr = np.asarray(img, np.float32).mean(axis=2)
+    patch_idxs: List[List[int]] = []
+    patches: List[np.ndarray] = []
+    cur = start_idx
+    for y in range(0, height, patch_h):
+        patch_idxs.append([])
+        row_patches = []
+        for x in range(0, width, patch_w):
+            p = arr[y:y + patch_h, x:x + patch_w]
+            if p.mean() != 0 and p.std() > 1e-2:
+                row_patches.append(p.astype(np.uint8))
+                patch_idxs[-1].append(cur)
+                cur += 1
+        if len(row_patches) > 1:
+            patches.extend(row_patches)
+        else:
+            cur -= len(row_patches)
+            patch_idxs = patch_idxs[:-1]
+    return (np.array(patches) if patches else
+            np.zeros((0, patch_h, patch_w), np.uint8)), patch_idxs, cur - 1
+
+
+class HPatchesDM:
+    """HPatches pair dataset over the sheets of ``root/name`` named in
+    ``root/splits.json`` (split ``split_name``, train or test), each kept
+    row of a sheet one class, cached as ``root/{name}_{train|test}.npz``;
+    pairs as :class:`PairDataset` makes them, without flips.  A sheet that
+    cannot be read is skipped, as the reference does."""
+
+    def __init__(self, root: str, name: str, train: bool = True,
+                 n_pairs: int = 1000, batch_size: int = 128,
+                 split_name: str = "b", seed: int = 0):
+        self.root = os.path.expanduser(root)
+        self.data_dir = os.path.join(self.root, name)
+        cache = os.path.join(self.root,
+                             f"{name}_{'train' if train else 'test'}.npz")
+        if not os.path.exists(cache):
+            with open(os.path.join(self.root, "splits.json")) as f:
+                splits = json.load(f)
+            good = splits[split_name]["train" if train else "test"]
+            patches, idxs = [], []
+            cur = 0
+            for f in sorted(os.listdir(self.data_dir)):
+                if not f.endswith(".png") or f[:-len(".png")] not in good:
+                    continue
+                try:
+                    p, rows, max_idx = read_patch_file(
+                        os.path.join(self.data_dir, f), 65, 65, cur)
+                except (OSError, ValueError):
+                    continue
+                cur = max_idx + 1
+                patches.append(p)
+                idxs.extend(rows)
+            flat = np.concatenate(patches)
+            row_of = np.zeros(len(flat), np.int64)
+            for row_id, members in enumerate(idxs):
+                row_of[members] = row_id
+            np.savez(cache, patches=flat, labels=row_of)
+        with np.load(cache) as data:
+            self.pairset = PairDataset(data["patches"], data["labels"],
+                                       n_pairs, batch_size, fliprot=False,
+                                       seed=seed)
+
+    def batches(self):
+        return self.pairset.batches()
 
 
 # ---------------------------------------------------------------------------

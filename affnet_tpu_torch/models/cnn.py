@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ops.conv_flat import activation, out_extent
 from ..ops.cuda_conv import b7_takes, conv_flat
 
@@ -90,19 +91,34 @@ def l2norm(x: Tensor, eps: float = 1e-10) -> Tensor:
     return x / norm[:, None]
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that, in train mode inside a sharded step over
+    more than one rank (``parallel.sharded``), normalizes with the global
+    batch's statistics (``parallel.batch_norm_global``); otherwise, one
+    process included, it is PyTorch's native BatchNorm."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        shard = parallel.current()
+        if self.training and shard is not None and shard.world > 1:
+            return parallel.batch_norm_global(self, x)
+        return super().forward(x)
+
+
 def batch_norm(ch: int) -> nn.BatchNorm2d:
     """BatchNorm without affine parameters (the reference's everywhere).
     Eval mode normalizes with the running statistics; train mode with the
     batch's biased variance, and updates the running statistics in place
     with momentum 0.1 and the unbiased variance, as the JAX package's
     ``batchnorm_train`` returns them."""
-    return nn.BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM, affine=False)
+    return BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM, affine=False)
 
 
 class Dropout(nn.Module):
     """Dropout whose mask comes from an explicit ``torch.Generator``.  It
     acts only in train mode and only when given a generator, as the JAX
-    package's dropout acts only when given a key (``rng=None`` is off)."""
+    package's dropout acts only when given a key (``rng=None`` is off).
+    Inside a sharded step the mask is drawn for the global batch and this
+    rank's rows are kept (``parallel.local``)."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -112,8 +128,10 @@ class Dropout(nn.Module):
                 generator: Optional[torch.Generator] = None) -> Tensor:
         if not self.training or generator is None or self.p <= 0:
             return x
-        keep = torch.rand(x.shape, generator=generator, device=x.device,
-                          dtype=x.dtype) < 1.0 - self.p
+        shape = (parallel.global_count(x.shape[0]),) + tuple(x.shape[1:])
+        keep = parallel.local(torch.rand(
+            shape, generator=generator, device=x.device,
+            dtype=x.dtype) < 1.0 - self.p)
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 

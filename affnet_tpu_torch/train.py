@@ -1,8 +1,9 @@
 """The trainers: AffNet, OriNet and a descriptor from scratch, with the SGD
 schedule, checkpoints and the loop.
 
-Counterpart of ``affnet_tpu/train.py`` (its ``mesh`` sharding is not
-ported).  The AffNet step (:func:`make_affnet_train_step`):
+Counterpart of ``affnet_tpu/train.py``; ``train_loop(mesh=)`` shards the
+batch over ranks through :mod:`.parallel`.  The AffNet step
+(:func:`make_affnet_train_step`):
 
 1. a random rotation x det-1 tilt warp of each 64x64 anchor and positive
    patch (kernel B5 forward), then a 32x32 center crop; 'Rot'-free archs
@@ -34,8 +35,13 @@ Each step splits into a random draw from a ``torch.Generator``
 (:func:`draw_affnet_lafs`, :func:`draw_orinet`, ``augmentation.draw_fliprot``)
 and a deterministic core that takes the draws; ``jax.random`` streams
 cannot be reproduced, so parity with the JAX package goes through the
-cores.  Checkpoints are the JAX package's npz layout (``layer{i}/w`` HWIO,
-``__epoch__``), readable by either package.
+cores.  Inside ``parallel.shard_train_step`` the draws are made over the
+global batch and sliced (``parallel.local``), and the descriptors (and
+OriNet's per-sample rotation distances) are all-gathered before the loss
+(``parallel.gather``), so every rank takes the global loss; the gradients
+are averaged over the ranks before SGD.  Outside it those calls change
+nothing.  Checkpoints are the JAX package's npz layout (``layer{i}/w``
+HWIO, ``__epoch__``), readable by either package.
 """
 
 from __future__ import annotations
@@ -47,9 +53,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from . import losses, resolve_device
+from . import losses, parallel, resolve_device
 from .augmentation import (draw_fliprot, fliprot_core,
                            get_random_rotation_lafs, get_random_shifts,
                            random_warp_lafs, warp_and_crop,
@@ -182,12 +189,13 @@ def apply_loss(name: str, desc_a: Tensor, desc_p: Tensor,
 
 def _sgd_step(state: TrainState, cfg: TrainConfig, loss_fn
               ) -> Dict[str, Any]:
-    """Gradients of ``loss_fn() -> (loss, descr_dist)``, then SGD at
-    ``lr_at_step(state.step)``."""
+    """Gradients of ``loss_fn() -> (loss, descr_dist)`` (averaged over the
+    ranks of a sharded step), then SGD at ``lr_at_step(state.step)``."""
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
     loss, descr_dist = loss_fn()
     loss.backward()
+    parallel.average_gradients(state.model.parameters())
     lr = lr_at_step(state.step, cfg)
     for group in opt.param_groups:
         group["lr"] = lr
@@ -232,7 +240,8 @@ def affnet_loss(model: nn.Module, descriptor_fn, cfg: TrainConfig,
         shapes.append(model(crop, generator))
     patches = warp_by_predicted_transform(torch.cat(fulls), torch.cat(shapes),
                                           ps, use_kernel=use_kernels)
-    descs = descriptor_fn(patches).chunk(len(batch))
+    desc = descriptor_fn(patches)
+    descs = parallel.gather(desc.reshape(len(batch), -1, desc.shape[1]), 1)
     desc_n = descs[2] if len(descs) > 2 else None
     return (apply_loss(cfg.loss, descs[0], descs[1], desc_n=desc_n),
             losses.descriptor_dist(descs[0], descs[1]))
@@ -261,8 +270,9 @@ def make_affnet_train_step(descriptor_fn, cfg: TrainConfig,
 
     def step_fn(state: TrainState, batch, generator: torch.Generator,
                 max_tilt: float) -> Dict[str, Any]:
-        lafs = draw_affnet_lafs(batch[0].shape[0], max_tilt, generator,
-                                shared_rot, negative=len(batch) > 2)
+        n = parallel.global_count(batch[0].shape[0])
+        lafs = parallel.local(draw_affnet_lafs(
+            n, max_tilt, generator, shared_rot, negative=len(batch) > 2))
         return affnet_step_core(state, descriptor_fn, cfg, batch, lafs,
                                 generator, use_kernels)
 
@@ -284,10 +294,8 @@ def descriptor_loss(model: nn.Module, cfg: TrainConfig,
     a, p = fliprot_core(batch[0], batch[1], *flips)
     ps = cfg.patch_size
     st = (a.shape[1] - ps) // 2
-    desc_a = l2norm(model.feature_vectors(a[:, st:st + ps, st:st + ps],
-                                          generator))
-    desc_p = l2norm(model.feature_vectors(p[:, st:st + ps, st:st + ps],
-                                          generator))
+    desc_a, desc_p = (parallel.gather(l2norm(model.feature_vectors(
+        x[:, st:st + ps, st:st + ps], generator))) for x in (a, p))
     return (apply_loss(cfg.loss, desc_a, desc_p),
             losses.descriptor_dist(desc_a, desc_p))
 
@@ -365,9 +373,10 @@ def orinet_loss(model: nn.Module, descriptor_fn, cfg: TrainConfig,
     patches = warp_by_predicted_transform(
         torch.cat([data_a_rot, data_p]), torch.cat([R_a, R_p]), ps,
         use_kernel=use_kernels)
-    desc_a, desc_p = descriptor_fn(patches).chunk(2)
-    geom_dist = torch.sqrt(((R_a - draw[1] @ R_p) ** 2).sum(dim=(1, 2))
-                           + 1e-8).mean()
+    desc = descriptor_fn(patches)
+    desc_a, desc_p = parallel.gather(desc.reshape(2, n, desc.shape[1]), 1)
+    geom_dist = parallel.gather(torch.sqrt(
+        ((R_a - draw[1] @ R_p) ** 2).sum(dim=(1, 2)) + 1e-8)).mean()
     return (apply_loss(cfg.loss, desc_a, desc_p, geom_dist),
             losses.descriptor_dist(desc_a, desc_p))
 
@@ -392,7 +401,8 @@ def make_orinet_train_step(descriptor_fn, cfg: TrainConfig,
 
     def step_fn(state: TrainState, batch, generator: torch.Generator,
                 max_tilt: Optional[float] = None) -> Dict[str, Any]:
-        draw = draw_orinet(batch[0].shape[0], generator)
+        draw = parallel.local(draw_orinet(
+            parallel.global_count(batch[0].shape[0]), generator))
         return orinet_step_core(state, descriptor_fn, cfg, batch, draw,
                                 generator, use_kernels)
 
@@ -444,8 +454,8 @@ def train_loop(model: nn.Module, dataset, cfg: TrainConfig,
                start_params: Optional[Dict[str, Any]] = None,
                start_epoch: int = 0, device: Any = "cuda",
                ori: bool = False, mode: Optional[str] = None,
-               eval_fn: Optional[Callable[[nn.Module, int], None]] = None
-               ) -> TrainState:
+               eval_fn: Optional[Callable[[nn.Module, int], None]] = None,
+               mesh=None) -> TrainState:
     """Train ``model`` (an ``nn.Module``, moved to ``device``) on
     ``dataset.batches()`` for ``cfg.epochs`` epochs, with a checkpoint per
     epoch and a metrics line every ``cfg.log_interval`` steps
@@ -457,7 +467,15 @@ def train_loop(model: nn.Module, dataset, cfg: TrainConfig,
     ``start_epoch`` continues the global step (and so the LR), and seeds
     the step generator with ``cfg.seed + 7919 * start_epoch``.  After each
     epoch's checkpoint, ``eval_fn(model, epoch)`` runs with the net in
-    eval mode; training goes on in train mode."""
+    eval mode; training goes on in train mode.
+
+    ``mesh``: a ``torch.distributed`` process group (``parallel.spawn``)
+    whose ranks each call ``train_loop`` alike, on their own ``device``.
+    Each rank reads the same global batch from ``dataset`` and steps on its
+    slice under ``parallel.shard_train_step``; only rank 0 prints the step
+    lines (the global loss), writes ``metrics.jsonl`` and the checkpoints,
+    and calls ``eval_fn``.  The global batch (``cfg.batch_size``) must
+    split evenly over the ranks."""
     if cfg.total_epochs is not None \
             and start_epoch + cfg.epochs > cfg.total_epochs:
         raise ValueError(
@@ -477,26 +495,38 @@ def train_loop(model: nn.Module, dataset, cfg: TrainConfig,
     descriptor_fn = (None if mode == "descriptor"
                      else make_descriptor(cfg.descriptor, desc_params, dev))
     step_fn = STEP_MAKERS[mode](descriptor_fn, cfg)
+    rank, world = 0, 1
+    if mesh is not None:
+        rank, world = dist.get_rank(mesh), dist.get_world_size(mesh)
+        if cfg.batch_size % world:
+            raise ValueError(f"batch size {cfg.batch_size} does not split "
+                             f"over {world} ranks")
+        step_fn = parallel.shard_train_step(step_fn, mesh)
     state = init_state(model, cfg,
                        start_epoch * (cfg.n_pairs // cfg.batch_size))
     generator = torch.Generator(device=dev).manual_seed(
         cfg.seed + 7919 * start_epoch)
 
-    logger = MetricsLogger(os.path.join(log_dir, "metrics.jsonl"))
+    logger = (MetricsLogger(os.path.join(log_dir, "metrics.jsonl"))
+              if rank == 0 else None)
     global_step = 0
     try:
         for epoch in range(start_epoch, start_epoch + cfg.epochs):
             max_tilt = tilt_for_epoch(epoch)
             for i, batch in enumerate(dataset.batches()):
-                batch = tuple(torch.as_tensor(x, device=dev) for x in batch)
+                batch = tuple(torch.as_tensor(
+                    x[rank * (len(x) // world):(rank + 1) * (len(x) // world)],
+                    device=dev) for x in batch)
                 metrics = step_fn(state, batch, generator, max_tilt)
-                if i % cfg.log_interval == 0:
+                if rank == 0 and i % cfg.log_interval == 0:
                     print(f"epoch {epoch} step {i} "
                           f"loss {float(metrics['loss']):.4f} "
                           f"descr_dist {float(metrics['descr_dist']):.4f} "
                           f"lr {metrics['lr']:.5f}")
                     logger.log(global_step, epoch=epoch, **metrics)
                 global_step += 1
+            if rank > 0:
+                continue
             save_checkpoint(os.path.join(log_dir, f"checkpoint_{epoch}.npz"),
                             model, epoch + 1)
             if eval_fn is not None:
@@ -506,5 +536,8 @@ def train_loop(model: nn.Module, dataset, cfg: TrainConfig,
                 finally:
                     model.train()
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
+    if mesh is not None:
+        dist.barrier(mesh)
     return state

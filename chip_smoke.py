@@ -168,6 +168,25 @@ Phases, each timed and each fatal on failure:
                grid_sample and its bound; one OriNet and one triplet step
                against the plain path on the card; train_loop's eval hook
                running evaluate_pair with the epoch's net (B1-B4 launch).
+ 17. parallel — data parallelism (affnet_tpu_torch/parallel.py): the
+               AffNet step at batch 1024 on two gloo ranks sharing the
+               card (spawned processes; a card per rank under NCCL as well
+               where two or more cards are present) against one process:
+               one step within the stated tolerances, three steps' losses,
+               equal ranks, B5's launches per rank; B5 at a rank's shapes
+               (512 anchors, the rewarp of 1024) against its plain
+               version; train_descriptor, train_affnet and train_orinet
+               through main --mesh 1 (a group of one under NCCL), 13 steps
+               each, ms per step beside phase 16's; the HesAffNet program
+               with --mesh 2 on three 1080p images: files equal to --mesh
+               1's, B1-B4 launched as often.
+ 18. hpatches — the HPatches tasks (verification, matching, retrieval) on
+               four in-memory sequences of 512 patches with HardTFeatNet
+               and SIFT on the card: the 65 -> 32 resize and the
+               descriptors against the CPU path (within 1e-5 on the same
+               resized patches), the tasks' metrics against the CPU's, ms
+               per patch.  No kernel of the port runs there (cuDNN nets,
+               plain SIFT), as in JAX.
 
 Kernel times ("ms") are device times from torch.profiler (CUPTI): the
 card's busy time per call, without the host's launch overhead.  The log
@@ -208,7 +227,8 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from affnet_tpu_torch import export, keypoints, load_pretrained, match
+from affnet_tpu_torch import (export, hpatches, keypoints, load_pretrained,
+                              match, parallel)
 from affnet_tpu_torch.cli import (describe_keypoints, eval_graf, extract_geom,
                                   hesaffbaum, hesaffnet, match_demo,
                                   optimize_shapes, pretrained,
@@ -221,7 +241,8 @@ from affnet_tpu_torch.detector import (DetectorConfig,
                                        ScaleSpaceAffinePatchExtractor)
 from affnet_tpu_torch.kernels import build
 from affnet_tpu_torch.models import (AffNetFast, HardNet, HardTFeatNet,
-                                     OriNetFast32, SIFTNet, params_from_jax)
+                                     OriNetFast32, SIFTNet, params_from_jax,
+                                     params_to_jax)
 from affnet_tpu_torch.io_formats import read_ells, write_ells
 from affnet_tpu_torch.models import cnn
 from affnet_tpu_torch.models.cnn import init_params
@@ -2749,7 +2770,8 @@ def make_dataroot(root: str, seed: int) -> tuple:
     return patches, labels
 
 
-def run_trainer(kind: str, main, argv: list, net_cls, log_dir: str) -> dict:
+def run_trainer(kind: str, main, argv: list, net_cls, log_dir: str,
+                tag: str = "") -> dict:
     """One training program's main on the card over TRAINER_STEPS batches
     of 1024 (--n-pairs sized to them, so the cut is in the data), its
     dataset timed (TimedBatches).  Checks: finite losses; every parameter
@@ -2757,7 +2779,7 @@ def run_trainer(kind: str, main, argv: list, net_cls, log_dir: str) -> dict:
     TRAINER_B5[kind] B5 launches per step and no other kernel; the
     checkpoint read back through load_checkpoint into a fresh net, equal to
     the trained one.  ms per step: host clock over steps 3-12,
-    synchronized, / 10."""
+    synchronized, / 10.  ``tag`` marks the run's log lines."""
     modules = (train_affnet, train_orinet, train_descriptor)
     real = train_affnet.make_dataset
     timed = {}
@@ -2782,9 +2804,9 @@ def run_trainer(kind: str, main, argv: list, net_cls, log_dir: str) -> dict:
     finally:
         for m, f in zip(modules, saved):
             m.make_dataset = f
-    log(f"trainer {kind}: launches ({TRAINER_STEPS} steps) "
+    log(f"trainer {kind}{tag}: launches ({TRAINER_STEPS} steps) "
         f"{json.dumps(counts)}")
-    require(state.step == TRAINER_STEPS, f"trainer {kind}: {state.step} "
+    require(state.step == TRAINER_STEPS, f"trainer {kind}{tag}: {state.step} "
             "steps")
     n64, n32, nb = (TRAINER_STEPS * k for k in TRAINER_B5[kind])
     require(counts.get("batched_fwd_ps64", 0) == n64
@@ -2793,13 +2815,13 @@ def run_trainer(kind: str, main, argv: list, net_cls, log_dir: str) -> dict:
             and counts["batched_bwd"] == nb
             and all(v == 0 for k, v in counts.items()
                     if not k.startswith("batched_")),
-            f"trainer {kind}: launches {counts}, expected {TRAINER_B5[kind]}"
+            f"trainer {kind}{tag}: launches {counts}, expected {TRAINER_B5[kind]}"
             " per step")
     (run_dir,) = [os.path.join(log_dir, d) for d in os.listdir(log_dir)]
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         losses = [json.loads(line)["loss"] for line in f]
     require(len(losses) == 2 and bool(np.isfinite(losses).all()),
-            f"trainer {kind}: losses {losses}")
+            f"trainer {kind}{tag}: losses {losses}")
     trained = {k: v.cpu() for k, v in state.model.state_dict().items()
                if v.is_floating_point()}
     init = init_params(net_cls(), torch.Generator().manual_seed(0),
@@ -2814,12 +2836,12 @@ def run_trainer(kind: str, main, argv: list, net_cls, log_dir: str) -> dict:
     back.load_state_dict(params_from_jax(tree))
     require(epoch == 1 and all(torch.equal(v, trained[k]) for k, v in
                                back.state_dict().items() if k in trained),
-            f"trainer {kind}: the checkpoint does not hold the trained net")
+            f"trainer {kind}{tag}: the checkpoint does not hold the trained net")
     ds = timed["ds"]
     step_ms = ds.step_ms()
     require(len(step_ms) == TRAINER_STEPS, f"{len(step_ms)} step times")
     ms = ds.window_s * 1e3 / TRAIN_TIMED
-    log(f"trainer {kind}: ms_per_step {ms:.3f} (host clock over steps "
+    log(f"trainer {kind}{tag}: ms_per_step {ms:.3f} (host clock over steps "
         f"{TRAIN_WARMUP}..{TRAINER_STEPS - 1}, synchronized, / "
         f"{TRAIN_TIMED}); pairs_per_s {TRAINER_BATCH / ms * 1e3:.1f}; per "
         f"step on the card's stream (CUDA events) median "
@@ -2936,8 +2958,9 @@ def check_eval_hook(patches, labels, desc_params, device, seed) -> dict:
     return c
 
 
-def phase_trainers(device, seed: int) -> dict:
-    """Phase 16: the published pipeline (run_me.sh:22-31) through the
+def phase_trainers(device, seed: int, tmp: str) -> dict:
+    """Phase 16, in the directory ``tmp`` (its dataroot and checkpoints
+    serve phase 17): the published pipeline (run_me.sh:22-31) through the
     training programs' main at batch 1024, 13 steps each: HardNet from
     scratch (train_descriptor, lr 0.1, no B5), AffNet against that
     checkpoint (train_affnet, HardNegC, lr 0.005), the OriNet trainer at
@@ -2947,33 +2970,33 @@ def phase_trainers(device, seed: int) -> dict:
     against the plain path on the card; the per-epoch eval hook."""
     t = time.perf_counter()
     res = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "6Brown")
-        os.makedirs(root)
-        patches, labels = make_dataroot(root, seed)
-        log(f"trainers: {len(patches)} patches of {TRAINER_CLASSES} classes "
-            f"(.npz + .pt) in {time.perf_counter() - t:.3f} s")
-        data = ["--dataroot", root]
-        res["descriptor"] = run_trainer(
-            "descriptor", train_descriptor.main, data + [
-                "--arch", "HardNet", "--loss", "HardNet", "--lr", "0.1"],
-            HardNet, os.path.join(tmp, "desc"))
-        require(os.path.exists(os.path.join(root, "b_synthetic.npz")),
-                "convert_pt_cache wrote no npz")
-        hardnet = ["--descriptor", "HardNet", "--desc-weights",
-                   res["descriptor"]["ckpt"]]
-        res["affnet"] = run_trainer(
-            "affnet", train_affnet.main, data + hardnet + [
-                "--loss", "HardNegC", "--lr", "0.005"],
-            AffNetFast, os.path.join(tmp, "affnet"))
-        res["orinet"] = run_trainer("orinet", train_orinet.main,
-                                    data + hardnet, OriNetFast32,
-                                    os.path.join(tmp, "orinet"))
-        res["triplet"] = run_trainer(
-            "triplet", train_affnet.main, data + hardnet + [
-                "--loss", "random_sampling", "--lr", "0.005"],
-            AffNetFast, os.path.join(tmp, "triplet"))
-        desc_params, _ = load_checkpoint(res["descriptor"]["ckpt"])
+    root = os.path.join(tmp, "6Brown")
+    os.makedirs(root)
+    patches, labels = make_dataroot(root, seed)
+    log(f"trainers: {len(patches)} patches of {TRAINER_CLASSES} classes "
+        f"(.npz + .pt) in {time.perf_counter() - t:.3f} s")
+    data = ["--dataroot", root]
+    res["descriptor"] = run_trainer(
+        "descriptor", train_descriptor.main, data + [
+            "--arch", "HardNet", "--loss", "HardNet", "--lr", "0.1"],
+        HardNet, os.path.join(tmp, "desc"))
+    require(os.path.exists(os.path.join(root, "b_synthetic.npz")),
+            "convert_pt_cache wrote no npz")
+    hardnet = ["--descriptor", "HardNet", "--desc-weights",
+               res["descriptor"]["ckpt"]]
+    res["affnet"] = run_trainer(
+        "affnet", train_affnet.main, data + hardnet + [
+            "--loss", "HardNegC", "--lr", "0.005"],
+        AffNetFast, os.path.join(tmp, "affnet"))
+    res["orinet"] = run_trainer("orinet", train_orinet.main,
+                                data + hardnet, OriNetFast32,
+                                os.path.join(tmp, "orinet"))
+    res["triplet"] = run_trainer(
+        "triplet", train_affnet.main, data + hardnet + [
+            "--loss", "random_sampling", "--lr", "0.005"],
+        AffNetFast, os.path.join(tmp, "triplet"))
+    desc_params, _ = load_checkpoint(res["descriptor"]["ckpt"])
+    res["root"], res["patches"], res["labels"] = root, patches, labels
     log(f"phase trainers runs wall_s: {time.perf_counter() - t:.3f}")
 
     t = time.perf_counter()
@@ -3008,6 +3031,321 @@ def phase_trainers(device, seed: int) -> dict:
     res["hook"] = check_eval_hook(patches, labels, desc_params, device, seed)
     log(f"phase trainers eval hook wall_s: {time.perf_counter() - t:.3f}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: data parallelism
+# ---------------------------------------------------------------------------
+
+PARALLEL_STEPS = 3
+# B5 launches per AffNet step and rank: (forwards at PS 64, at PS 32,
+# backwards), as on one card.
+PARALLEL_B5 = TRAINER_B5["affnet"]
+
+
+def _param_update_errs(got: dict, ref: dict, start: dict) -> tuple:
+    """(largest |got - ref| of a parameter over the largest magnitude of its
+    one-process update, largest |got - ref| of a BatchNorm statistic)."""
+    upd, stats = 0.0, 0.0
+    for key, r in ref.items():
+        err = float(np.abs(got[key] - r).max())
+        if "running" in key:
+            stats = max(stats, err)
+        else:
+            scale = float(np.abs(r - start[key]).max())
+            require(scale > 0, f"sharded steps: {key} did not move")
+            upd = max(upd, err / scale)
+    return upd, stats
+
+
+def check_sharded_steps(patches, labels, device, seed, ranks_device) -> dict:
+    """AffNet steps at batch 1024 (HardNegC against the frozen
+    HardTFeatNet, phase 6's configuration; dropout on) through
+    parallel.run_steps on two ranks of ``ranks_device`` ("cuda:0": both
+    on the one card over gloo; "cuda": a card each over NCCL) against the
+    same steps in one process on the card.  One step: loss rtol 1e-5 and
+    BatchNorm statistics atol 1e-6 (the CPU tests' tolerances,
+    tests/test_torch_parallel.py), every parameter within 1e-2 of its
+    one-process update (the CPU tests hold 2e-3 at batch 16; at 1024 the
+    hardest of 1023 negatives is a near tie for more anchors, and a tie
+    that rounding flips moves that anchor's share of the gradient:
+    measured 4.3e-3); then PARALLEL_STEPS steps from the same start:
+    losses rtol 1e-5 (the parameters drift apart through the loss's
+    hardest negatives, whose choice flips under rounding: logged), B5
+    launched PARALLEL_B5 times per step on each rank and nothing else, ms
+    per step on each side.  Both ranks end equal in every case."""
+    cfg = dataclasses.replace(TRAIN_CFG, seed=seed)
+    batches = list(PairDataset(patches, labels,
+                               n_pairs=PARALLEL_STEPS * cfg.batch_size,
+                               batch_size=cfg.batch_size,
+                               seed=seed + 3).batches())
+    net = init_params(AffNetFast(), torch.Generator().manual_seed(seed))
+    start = {k: v.numpy() for k, v in net.state_dict().items()
+             if v.is_floating_point()}
+    case = dict(mode="affnet", arch="AffNetFast", cfg=cfg,
+                start=params_to_jax(net.state_dict()),
+                desc_params=load_pretrained("HardTFeatNet"))
+    cases = [dict(case, batches=batches[:1]), dict(case, batches=batches)]
+    t = time.perf_counter()
+    one = parallel.run_steps(0, device, None, cases)
+    t_one = time.perf_counter() - t
+    t = time.perf_counter()
+    two = parallel.spawn(parallel.run_steps, 2, ranks_device, args=(cases,))
+    t_two = time.perf_counter() - t
+    upd, stats = _param_update_errs(two[0]["state"], one[0]["state"], start)
+    upd3, stats3 = _param_update_errs(two[1]["state"], one[1]["state"],
+                                      start)
+    loss_rel = max(abs(a - b) / abs(b) for k in (0, 1)
+                   for a, b in zip(two[k]["losses"], one[k]["losses"]))
+    log(f"sharded AffNet steps ({ranks_device}, 2 ranks x "
+        f"{cfg.batch_size // 2}): one step: parameters max |diff| / update "
+        f"{upd:.3g}, BN statistics max |diff| {stats:.3g}; "
+        f"{PARALLEL_STEPS} steps: losses {two[1]['losses']} vs one process "
+        f"{one[1]['losses']} (max rel over both runs {loss_rel:.3g}), "
+        f"parameters {upd3:.3g}, statistics {stats3:.3g}; ranks differ by "
+        f"{two[0]['rank_spread']}, {two[1]['rank_spread']}; ms per step "
+        f"(host clock, loss read back) two ranks "
+        f"{[round(x, 3) for x in two[1]['step_ms']]}, one process "
+        f"{[round(x, 3) for x in one[1]['step_ms']]}; wall_s {t_two:.3f} "
+        f"(spawn included) vs {t_one:.3f}; rank 0 launches "
+        f"({PARALLEL_STEPS} steps) {json.dumps(two[1]['counts'])}")
+    require(loss_rel <= 1e-5, f"sharded steps: losses {two} vs {one}")
+    require(upd <= 1e-2 and stats <= 1e-6, f"sharded step: parameters "
+            f"{upd}, statistics {stats}")
+    require(two[0]["rank_spread"] == 0.0 and two[1]["rank_spread"] == 0.0,
+            "sharded steps: the ranks' parameters differ")
+    n64, n32, nb = (PARALLEL_STEPS * k for k in PARALLEL_B5)
+    for who, r in (("rank 0", two[1]), ("one process", one[1])):
+        c = r["counts"]
+        require(c.get("batched_fwd_ps64", 0) == n64
+                and c.get("batched_fwd_ps32", 0) == n32
+                and c["batched_bwd"] == nb
+                and all(v == 0 for k, v in c.items()
+                        if not k.startswith("batched_")),
+                f"sharded steps, {who}: launches {c}")
+    return dict(one=one[1], two=two[1], loss_rel=loss_rel, update_err=upd,
+                stats_err=stats, update_err_steps=upd3,
+                stats_err_steps=stats3, counts=two[1]["counts"],
+                step_ms=float(np.median(two[1]["step_ms"][1:])),
+                one_step_ms=float(np.median(one[1]["step_ms"][1:])))
+
+
+def check_program_pipeline(imgs, device) -> dict:
+    """The HesAffNet program's bulk mode with --mesh 2 on three same-size
+    1080p images (.npy): the images dealt over min(2, cards) cards
+    (parallel.make_sharded_image_pipeline), the count of cards on stderr,
+    files equal byte for byte to --mesh 1's (one card), B1-B4 launched as
+    often as under --mesh 1; ms per image of each."""
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = save_npy(tmp, imgs)
+        for mesh in (1, 2):
+            err = io.StringIO()
+            reset_launch_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                hesaffnet.main([",".join(paths), os.path.join(
+                    tmp, f"m{mesh}.ells"), "--do-ori", "--mesh", str(mesh)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            cards = min(mesh, torch.cuda.device_count())
+            require(f"--mesh {mesh}: {cards} card(s)" in err.getvalue(),
+                    f"--mesh {mesh}: stderr {err.getvalue()!r}")
+            files = []
+            for i in range(len(imgs)):
+                with open(os.path.join(tmp, f"m{mesh}_{i}.ells"), "rb") as f:
+                    files.append(f.read())
+            res[mesh] = dict(counts=launch_counts(), files=files,
+                             ms_per_image=wall * 1e3 / len(imgs),
+                             cards=cards)
+    require(res[2]["files"] == res[1]["files"],
+            "hesaffnet --mesh 2: files differ from --mesh 1's")
+    require(res[2]["counts"] == res[1]["counts"]
+            and all(res[2]["counts"][k] > 0 for k in EXTRACTION_KERNELS),
+            f"hesaffnet --mesh 2 launches {res[2]['counts']} vs "
+            f"{res[1]['counts']}")
+    log(f"hesaffnet --mesh 2 on {len(imgs)} images ({res[2]['cards']} "
+        f"card(s)): files equal to --mesh 1's; ms per image (main, host "
+        f"clock, model load included) {res[2]['ms_per_image']:.3f} vs "
+        f"{res[1]['ms_per_image']:.3f}; launches "
+        f"{json.dumps(res[2]['counts'])}")
+    return res
+
+
+def phase_parallel(imgs, trainers, device, seed: int, tmp: str) -> dict:
+    """Phase 17: data parallelism on the card.  Two gloo ranks sharing
+    cuda:0 run PARALLEL_STEPS AffNet steps at batch 1024 against one
+    process (and, with two or more cards, a card per rank under NCCL); B5
+    at a rank's shapes (512 anchors, the rewarp of 1024) against its plain
+    version; train_descriptor, train_affnet and train_orinet through main
+    --mesh 1 (a group of one under NCCL) as in phase 16, their first loss
+    equal to phase 16's and ms per step beside it; the HesAffNet program
+    with --mesh 2."""
+    t = time.perf_counter()
+    patches, labels = trainers["patches"], trainers["labels"]
+    res = {"gloo": check_sharded_steps(patches, labels, device, seed,
+                                       "cuda:0")}
+    if torch.cuda.device_count() >= 2:
+        res["nccl"] = check_sharded_steps(patches, labels, device, seed,
+                                          "cuda")
+    else:
+        log("sharded AffNet steps, a card per rank under NCCL: not run "
+            f"({torch.cuda.device_count()} card)")
+    half = TRAIN_CFG.batch_size // 2
+    batch = tuple(torch.from_numpy(x[:half]).to(device) for x in next(iter(
+        PairDataset(patches, labels, TRAIN_CFG.batch_size,
+                    TRAIN_CFG.batch_size, seed=seed + 3).batches())))
+    sites = phase_train_kernels(batch, seed)
+    for key, r in sites.items():
+        r["name"] = key.replace("batched_", "batched_sharded_")
+    res["sites"] = sites
+    log(f"phase parallel steps wall_s: {time.perf_counter() - t:.3f}")
+
+    t = time.perf_counter()
+    data = ["--dataroot", trainers["root"], "--mesh", "1"]
+    hardnet = ["--descriptor", "HardNet", "--desc-weights",
+               trainers["descriptor"]["ckpt"]]
+    runs = {"descriptor": (train_descriptor.main, [
+                "--arch", "HardNet", "--loss", "HardNet", "--lr", "0.1"],
+                HardNet),
+            "affnet": (train_affnet.main, hardnet + [
+                "--loss", "HardNegC", "--lr", "0.005"], AffNetFast),
+            "orinet": (train_orinet.main, hardnet, OriNetFast32)}
+    res["mesh1"] = {}
+    for kind, (main, argv, net_cls) in runs.items():
+        r = run_trainer(kind, main, data + argv, net_cls,
+                        os.path.join(tmp, f"{kind}_mesh1"), tag=" --mesh 1")
+        ref = trainers[kind]
+        require(abs(r["losses"][0] - ref["losses"][0])
+                <= 1e-4 * abs(ref["losses"][0]),
+                f"trainer {kind} --mesh 1: first loss {r['losses'][0]} vs "
+                f"{ref['losses'][0]} without a group")
+        log(f"trainer {kind} --mesh 1 (NCCL, a group of one): ms_per_step "
+            f"{r['ms']:.3f} vs {ref['ms']:.3f} without a group (phase 16); "
+            f"losses {r['losses']} vs {ref['losses']}")
+        res["mesh1"][kind] = r
+    log(f"phase parallel trainers wall_s: {time.perf_counter() - t:.3f}")
+
+    t = time.perf_counter()
+    res["program"] = check_program_pipeline(imgs, device)
+    log(f"phase parallel program wall_s: {time.perf_counter() - t:.3f}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the HPatches benchmark
+# ---------------------------------------------------------------------------
+
+HP_SEQS, HP_PATCHES = 4, 512
+HP_SHEETS = {"e1": (1, 3.0), "h1": (2, 8.0), "t1": (3, 15.0)}
+
+
+def hpatches_sequences(seed: int) -> list:
+    """HP_SEQS in-memory HPatches sequences (alternately i_ and v_), each
+    of HP_PATCHES 65x65 patches cut from the 640x800 fixture at seeded
+    places (ref), and the sheets e1, h1, t1: the same places shifted by up
+    to 1, 2, 3 px with seeded noise of 3, 8, 15 grey levels (as
+    tests/test_hpatches.py), rounded to grey levels as read_sheet reads
+    them."""
+    img = np.load(os.path.join(FIXTURES, "detector_golden_fullres.npz"))[
+        "img"].astype(np.float64)
+    rng = np.random.RandomState(seed + 18)
+    h, w = img.shape
+    seqs = []
+    for k in range(HP_SEQS):
+        ys = rng.randint(3, h - 65 - 3, HP_PATCHES)
+        xs = rng.randint(3, w - 65 - 3, HP_PATCHES)
+
+        def sheet(shift, noise):
+            dy = rng.randint(-shift, shift + 1, HP_PATCHES)
+            dx = rng.randint(-shift, shift + 1, HP_PATCHES)
+            out = np.stack([img[y:y + 65, x:x + 65]
+                            for y, x in zip(ys + dy, xs + dx)])
+            out = out + rng.normal(0.0, noise, out.shape)
+            return np.clip(np.round(out), 0, 255).astype(np.float32)
+
+        ref = sheet(0, 0.0)
+        warped = {name: sheet(*spec) for name, spec in HP_SHEETS.items()}
+        seqs.append(hpatches.Sequence(f"{'iv'[k % 2]}_chip{k}", ref, warped))
+    return seqs
+
+
+def _run_tasks(seqs, desc_fn) -> dict:
+    """The three tasks, each array described once (the memo of
+    hpatches.run_benchmark, which holds what it keys)."""
+    cache = {}
+
+    def cached(p):
+        if id(p) not in cache:
+            cache[id(p)] = (p, desc_fn(p))
+        return cache[id(p)][1]
+
+    return {"verification": hpatches.task_verification(seqs, cached),
+            "matching": hpatches.task_matching(seqs, cached),
+            "retrieval": hpatches.task_retrieval(seqs, cached)}
+
+
+def phase_hpatches(device, seed: int) -> dict:
+    """Phase 18: the HPatches tasks on the card over HP_SEQS in-memory
+    sequences (the card's machine has no PIL to read sheets), with the
+    TFeat (HardTFeatNet) and SIFT descriptors: the 65 -> 32 resize on the
+    card against the CPU's (within 1 grey level, at most 1% of the pixels:
+    the tests' tolerance against PIL), HardTFeatNet on the card against
+    the CPU on the same resized patches and SIFT's descriptors card
+    against CPU within 1e-5; the three tasks on the card and on the CPU,
+    their metrics within 0.01; ms per patch described on the card."""
+    t = time.perf_counter()
+    seqs = hpatches_sequences(seed)
+    sheets = [s.ref for s in seqs] + [w for s in seqs
+                                     for w in s.warped.values()]
+    allp = np.concatenate(sheets)
+    res = {}
+    rs = hpatches.resize_patches(allp, 32, device)
+    rs_cpu = hpatches.resize_patches(allp, 32, "cpu")
+    diff = (rs.cpu() - rs_cpu).abs()
+    res["resize_max"] = float(diff.max())
+    res["resize_share"] = float((diff > 0).float().mean())
+    require(res["resize_max"] <= 1.0 and res["resize_share"] <= 0.01,
+            f"hpatches resize: card vs CPU max {res['resize_max']}, "
+            f"{res['resize_share']:.4%} of the pixels")
+    net = pretrained(HardTFeatNet(), "HardTFeatNet").eval()
+    net_card = copy.deepcopy(net).to(device)
+    with float32_math(), torch.no_grad():
+        d_card = net_card(rs).cpu()
+        d_cpu = net(rs.cpu())
+    res["tfeat_err"] = float((d_card - d_cpu).abs().max())
+    require(res["tfeat_err"] <= 1e-5, f"hpatches TFeat: card vs CPU "
+            f"{res['tfeat_err']}")
+    for name in ("TFeat", "SIFT"):
+        fn, _ = hpatches.make_descriptor_fn(name, device=device)
+        fn_cpu, _ = hpatches.make_descriptor_fn(name, device="cpu")
+        fn(allp[:64])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(allp)
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = fn_cpu(allp)
+        err = float(np.abs(got - ref).max())
+        if name == "SIFT":
+            require(err <= 1e-5, f"hpatches SIFT: card vs CPU {err}")
+        tasks = _run_tasks(seqs, fn)
+        tasks_cpu = _run_tasks(seqs, fn_cpu)
+        worst = max(abs(tasks[t_][k] - tasks_cpu[t_][k])
+                    for t_ in tasks for k in tasks[t_])
+        require(worst <= 0.01, f"hpatches {name}: card {tasks} vs CPU "
+                f"{tasks_cpu}")
+        log(f"hpatches {name}: {len(allp)} patches in {ms:.3f} ms on the "
+            f"card ({ms / len(allp) * 1e3:.3f} us per patch, host clock, "
+            f"descriptors back on the host); card vs CPU descriptors max "
+            f"|diff| {err:.3g}; tasks {json.dumps(tasks)}; the CPU's differ "
+            f"by at most {worst:.3g}")
+        res[name] = dict(ms=ms, err=err, tasks=tasks, worst=worst)
+    log(f"hpatches resize 65 -> 32 card vs CPU: max {res['resize_max']}, "
+        f"{res['resize_share']:.4%} of the pixels differ; HardTFeatNet on "
+        f"the same patches card vs CPU max |diff| {res['tfeat_err']:.3g}")
+    log(f"phase hpatches wall_s: {time.perf_counter() - t:.3f}")
+    return res
+
 
 
 def main(argv=None) -> int:
@@ -3108,9 +3446,12 @@ def run_phases(args) -> int:
     baum = phase_hesaffbaum(imgs, device)
     onepass = phase_onepass(imgs, device)
     apps = phase_apps(imgs, device, args.seed)
-    trainers = phase_trainers(device, args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainers = phase_trainers(device, args.seed, tmp)
+        par = phase_parallel(imgs, trainers, device, args.seed, tmp)
+    phase_hpatches(device, args.seed)
     for r in (baum["site"], onepass["refine"], apps["site"],
-              *trainers["sites"].values()):
+              *trainers["sites"].values(), *par["sites"].values()):
         log(f"kernel {r['name']} {r['shape']}: max_abs_err {r['err']:.3g} "
             f"ms {r['ms']:.4f} event_median_ms {r['event_ms']:.4f} "
             f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']} "
@@ -3209,6 +3550,17 @@ def run_phases(args) -> int:
                          "affnet_tpu/ops/pallas_patches.py:94 via :665 ("
                          + ("affnet_tpu/train.py:315-341" if kind == "ori"
                             else "affnet_tpu/train.py:225-232") + ")"))
+    # B5 at a rank's shapes of the sharded AffNet step (phase 17: 512
+    # anchors, the rewarp of 1024), with rank 0's launches over the
+    # two-rank steps.
+    for key, r in par["sites"].items():
+        bwd = key == "batched_bwd"
+        rows.append((r, par["gloo"]["counts"][key],
+                     "affnet_tpu_torch/csrc/patches"
+                     + ("_bwd.cu" if bwd else ".cu"),
+                     "affnet_tpu/ops/pallas_patches.py:"
+                     + ("702" if bwd else "94 via :665")
+                     + " (affnet_tpu/parallel.py:55-78)"))
     kernels = [{
         "name": r["name"], "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,

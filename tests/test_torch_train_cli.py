@@ -199,18 +199,21 @@ def test_train_orinet_cli_on_a_dataset_dir(tmp_path):
 
 
 @pytest.mark.parametrize("main,argv,match", [
-    (train_affnet.main, ["--mesh", "2"], "parallel.py as torch DDP"),
-    (train_orinet.main, ["--mesh", "4"], "--mesh 4"),
-    (train_descriptor.main, ["--mesh", "2"], "not ported"),
+    (train_affnet.main, ["--mesh", "2", "--device", "cuda"],
+     "--mesh 2: one card per rank"),
+    (train_orinet.main, ["--mesh", "4", "--device", "cuda"], "--mesh 4"),
+    (train_descriptor.main, ["--mesh", "2", "--device", "cuda"],
+     "CUDA cards are present"),
     (train_affnet.main, ["--arch", "AffNetFast4"], "AffNetFast"),
     (train_affnet.main, ["--arch", "OriNetFast32"], "AffNet trainer"),
     (train_orinet.main, ["--arch", "AffNetFast"], "OriNetFast32"),
     (train_affnet.main, ["--descriptor", "HardNet"], "--desc-weights")])
 def test_refusals(tmp_path, main, argv, match):
-    """--mesh N > 1 and nets the port lacks never run; HardNet needs its
-    weights, as in JAX."""
+    """--mesh N above the cards present (one card per rank) and nets the
+    port lacks never run; HardNet needs its weights, as in JAX.  ``argv``
+    comes last, so its ``--device`` wins."""
     with pytest.raises(SystemExit, match=match):
-        main(argv + ["--log-dir", str(tmp_path), "--device", "cpu"])
+        main(["--log-dir", str(tmp_path), "--device", "cpu"] + argv)
     assert not glob.glob(str(tmp_path / "*" / "checkpoint_*"))
 
 
