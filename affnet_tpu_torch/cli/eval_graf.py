@@ -13,8 +13,10 @@ card unless ``--device cpu`` asks for the CPU.
 The reference uses HardNet++ weights, which are not shipped; the default
 descriptor is the weight-free differentiable SIFT.  ``--descriptor HardNet``
 needs ``--desc-weights X.npz`` and falls back to the shipped HardTFeat
-weights without them, with a note.  ``--shape-arch`` takes the AffNet nets
-of the port's zoo (AffNetFast); JAX's ablation heads are not ported.
+weights without them, with a note; ``--descriptor HardNetNarELU`` needs
+them too.  ``--shape-arch`` takes every AffNet of the zoo (AffNetFast and
+its ten ablation variants), with ``--shape-weights`` where no weights are
+shipped (only AffNetFast's are).
 
 Usage: python -m affnet_tpu_torch.cli.eval_graf [--img2-idx 6]
        [--nfeats 3000] [--graf-dir DIR] [--all] [--device cpu]
@@ -29,18 +31,20 @@ from typing import Optional
 import numpy as np
 from torch import nn
 
-from .. import load_params_npz
+from .. import WEIGHTS_DIR, load_params_npz
 from ..detector import DetectorConfig, ScaleSpaceAffinePatchExtractor
 from ..match import snn_match_host
-from ..models import (AffineShapeEstimator, AffNetFast, HardNet,
-                      HardTFeatNet, OriNetFast32, SIFTNet, params_from_jax)
+from ..models import (REGISTRY, AffineShapeEstimator, AffNet, AffNetFast,
+                      HardNet, HardNetNarELU, HardTFeatNet, OriNetFast32,
+                      SIFTNet, params_from_jax)
 from ..models.cnn import l2norm
 from ..reproj import get_gt_correspondence_indexes
 from . import pretrained
 from .hesaffnet import load_gray
 
 DEFAULT_GRAF = "test-graf"
-SHAPE_ARCHS = {"AffNetFast": AffNetFast}
+SHAPE_ARCHS = {name: net for name, net in REGISTRY.items()
+               if issubclass(net, AffNet)}
 
 
 class PixelDescriptor(nn.Module):
@@ -109,15 +113,22 @@ def make_extractor(nfeats: int = 3000, descriptor: str = "SIFT",
         desc_net = _weights(HardNet(), desc_weights, "HardNet")
     elif descriptor == "TFeat":
         desc_net = _weights(HardTFeatNet(), desc_weights, "HardTFeatNet")
+    elif descriptor == "HardNetNarELU":
+        if not desc_weights:
+            raise ValueError("descriptor HardNetNarELU needs desc_weights")
+        desc_net = _weights(HardNetNarELU(), desc_weights, "HardNetNarELU")
     else:
         desc_net = PixelDescriptor()
     shape_net, baum_iters = None, 0
     if shape_arch is not None:
         if shape_arch not in SHAPE_ARCHS:
-            raise SystemExit(
-                f"--shape-arch {shape_arch!r}: the port's zoo has "
-                f"{sorted(SHAPE_ARCHS)} (JAX's ablation heads are not "
-                "ported)")
+            raise SystemExit(f"--shape-arch {shape_arch!r}: the AffNets are "
+                             f"{sorted(SHAPE_ARCHS)}")
+        if not shape_weights and not os.path.exists(
+                os.path.join(WEIGHTS_DIR, f"{shape_arch}.npz")):
+            raise SystemExit(f"--shape-arch {shape_arch}: no weights are "
+                             "shipped for it (only AffNetFast's); pass "
+                             "--shape-weights X.npz")
         shape_net = _weights(SHAPE_ARCHS[shape_arch](), shape_weights,
                              shape_arch)
         baum_iters = 1
@@ -149,13 +160,14 @@ def main(argv=None):
                         help="bf16 patch sampling and nets (float32 "
                              "detection)")
     parser.add_argument("--descriptor", default="SIFT",
-                        choices=["SIFT", "HardNet", "TFeat", "pixels"])
+                        choices=["SIFT", "HardNet", "TFeat", "pixels",
+                                 "HardNetNarELU"])
     parser.add_argument("--desc-weights", default=None)
     parser.add_argument("--shape", default="AffNetFast",
                         choices=["AffNetFast", "Baumberg", "none"])
     parser.add_argument("--shape-arch", default=None,
-                        help="an AffNet net of the port's zoo (with "
-                             "--shape-weights; overrides --shape)")
+                        help="an AffNet of the zoo (with --shape-weights "
+                             "but for AffNetFast; overrides --shape)")
     parser.add_argument("--shape-weights", default=None,
                         help=".npz weights for the shape net (e.g. a "
                              "training checkpoint)")

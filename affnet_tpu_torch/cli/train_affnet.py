@@ -14,8 +14,10 @@ under NCCL (``parallel.spawn``; ``--device cpu``: N CPU ranks over gloo),
 with the one-device step's semantics on the global batch (hardest
 negatives over the global batch, global BatchNorm statistics); rank 0
 writes the logs and checkpoints.  N = 1 runs in this process, in a group
-of one.  N above the cards present is refused.  ``--arch`` takes the
-AffNet nets of the port's zoo (AffNetFast).
+of one.  N above the cards present is refused.  ``--arch`` takes every
+AffNet of the zoo, as JAX's: AffNetFast and the ten ablation variants;
+a name with "Rot" draws each positive's rotation apart from its
+anchor's.
 
 Usage: python -m affnet_tpu_torch.cli.train_affnet --dataroot dataset/6Brown \\
           --lr 0.005 --n-pairs 10000000 --batch-size 1024 \\
@@ -34,7 +36,7 @@ import torch
 
 from .. import data as D
 from .. import load_params_npz, load_pretrained, parallel
-from ..models import REGISTRY, AffNetFast
+from ..models import REGISTRY, AffNet
 from ..train import TrainConfig, load_checkpoint, save_checkpoint, train_loop
 from . import eval_graf
 
@@ -210,7 +212,7 @@ def _rank_main(rank, device, group, argv):
 
 def train(args, mesh=None):
     """The program on ``args``; ``mesh``: this rank's process group."""
-    model = net_for(args.arch, AffNetFast, "AffNet trainer")
+    model = net_for(args.arch, AffNet, "AffNet trainer")
     cfg = TrainConfig(arch=args.arch, descriptor=args.descriptor,
                       loss=args.loss, lr=args.lr, wd=args.wd,
                       batch_size=args.batch_size, n_pairs=args.n_pairs,

@@ -1,7 +1,8 @@
 """Train a descriptor CNN (HardNet from scratch) on patch pairs.
 
 Counterpart of ``affnet_tpu/cli/train_descriptor.py`` with its flags: the
-HardNet architecture (reference HardNet.py:61-101), or HardTFeatNet, with
+HardNet architecture (reference HardNet.py:61-101), HardTFeatNet, or
+HardNetNarELU (HardNet.py:30-71, which JAX's ``--arch`` does not list), with
 the HardNet loss (Losses.py:113-180) on the pair data of the other
 trainers, a pair-shared transpose and flip, the reference's SGD and
 linear LR decay.  The per-epoch eval runs the graf pipeline with the
@@ -44,7 +45,7 @@ def build_parser():
     p.add_argument("--loss", type=str, default="HardNet",
                    choices=["HardNet", "HardNegC", "PosDist"])
     p.add_argument("--arch", type=str, default="HardNet",
-                   choices=["HardNet", "HardTFeatNet"])
+                   choices=["HardNet", "HardTFeatNet", "HardNetNarELU"])
     p.add_argument("--mesh", type=int, default=0, help=MESH_HELP)
     p.add_argument("--synthetic", action="store_true",
                    help="train on offline synthetic pairs (no dataset needed)")
@@ -101,7 +102,7 @@ def train(args, mesh=None):
 
     # The graf pipeline with the trained descriptor and the shipped AffNet,
     # the descriptor's counterpart of the reference's per-epoch test().
-    desc_flag = "HardNet" if args.arch == "HardNet" else "TFeat"
+    desc_flag = {"HardTFeatNet": "TFeat"}.get(args.arch, args.arch)
     eval_fn = make_eval_fn(args, log_dir, lambda ckpt: [
         "--descriptor", desc_flag, "--desc-weights", ckpt])
     return train_loop(model, dataset, cfg, log_dir=log_dir,

@@ -66,7 +66,7 @@ from .ops.cuda_patches import extract_patches_pyramid
 from .ops.nms import border_mask, masked_topk
 from .ops.patches import sample_extents, select_levels_for_lafs
 from .ops.scalespace import PyramidPlan, build_flat_pyramid, make_plan
-from .utils import float32_math
+from .utils import check_finite, float32_math
 
 Tensor = torch.Tensor
 
@@ -430,4 +430,8 @@ class ScaleSpaceAffinePatchExtractor:
         for k in ("orig_idx", "oct_idx", "level_idx"):
             res[k] = res[k].astype(np.int32)
         res["n_detected"] = n_detected
-        return res
+        return check_finite(res, "the extractor's output")
+
+
+# The JAX package's other name for the extractor.
+HessAffNetPipeline = ScaleSpaceAffinePatchExtractor

@@ -136,6 +136,10 @@ def rotation_matrix(angle: Tensor) -> Tensor:
                         torch.stack([-s, c], -1)], -2)
 
 
+# The reference's angles2A (LAF.py:306-311) is rotation_matrix.
+angles2A = rotation_matrix
+
+
 def get_normalized_affine_shape(tilt: Tensor, angle: Tensor) -> Tensor:
     """det-1 tilt R(phi) @ diag(t, 1) @ R(phi), rectified up-is-up (the
     train-time shape augmentation)."""

@@ -1,19 +1,21 @@
 """Shared pieces of the patch CNNs: per-patch input standardization, L2
-normalization, BatchNorm, dropout from an explicit generator, the
-orthogonal initialization of a fresh net, and the two eval layer stacks.
+and L1 normalization, BatchNorm, dropout from an explicit generator, the
+orthogonal initialization of a fresh net, and the three eval layer stacks.
 
 Counterparts of ``affnet_tpu/models/cnn.py``'s ``input_norm``, ``l2norm``,
-``batchnorm_eval``/``batchnorm_train``, its ``Dropout`` layer,
-``init_params``, ``apply_spec`` (:func:`apply_layers`) and
-``_apply_spec_flat`` (:func:`apply_flat`).
+``l1norm``, ``batchnorm_eval``/``batchnorm_train``, its ``Dropout`` layer,
+``init_params``, ``apply_spec`` (:func:`apply_layers`),
+``_apply_spec_flat`` (:func:`apply_flat`) and ``_apply_spec_cnhw``
+(:func:`apply_cnhw`, with ``conv_cnhw``).
 
 ``EVAL_CONV_LAYOUT`` picks the eval stack, as in the JAX package: "nchw"
 (the default) runs each layer as it stands (``nn.Conv2d``: cuDNN on the
 card); "flat" runs the trunk convolutions through kernel B7 on the flat
-``(C, N*H*W)`` layout (:func:`apply_flat`).  It is read from
-``AFFNET_EVAL_CONV`` at import, which refuses any other value (the JAX
-package's "cnhw" layout has no kernel and is not ported);
-:func:`eval_layout` sets it for a block or a function.
+``(C, N*H*W)`` layout (:func:`apply_flat`); "cnhw" keeps the activations
+as ``(C, N, H, W)`` and runs each conv as one matrix product over the
+stacked taps (:func:`apply_cnhw`).  It is read from ``AFFNET_EVAL_CONV``
+at import, which refuses any other value; :func:`eval_layout` sets it for
+a block or a function.
 """
 
 from __future__ import annotations
@@ -35,13 +37,13 @@ Tensor = torch.Tensor
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
-EVAL_CONV_LAYOUTS = ("nchw", "flat")
+EVAL_CONV_LAYOUTS = ("nchw", "cnhw", "flat")
 
 
 def _checked_layout(layout: str) -> str:
     if layout not in EVAL_CONV_LAYOUTS:
-        raise ValueError(f"eval conv layout {layout!r}: the port has "
-                         f"{EVAL_CONV_LAYOUTS} (JAX's 'cnhw' is not ported)")
+        raise ValueError(f"eval conv layout {layout!r}: the layouts are "
+                         f"{EVAL_CONV_LAYOUTS}")
     return layout
 
 
@@ -88,6 +90,12 @@ def input_norm(x: Tensor, detach: bool = True) -> Tensor:
 def l2norm(x: Tensor, eps: float = 1e-10) -> Tensor:
     """Row-wise L2 normalization."""
     norm = torch.sqrt((x * x).sum(dim=1) + eps)
+    return x / norm[:, None]
+
+
+def l1norm(x: Tensor, eps: float = 1e-10) -> Tensor:
+    """Row-wise L1 normalization."""
+    norm = torch.abs(x).sum(dim=1) + eps
     return x / norm[:, None]
 
 
@@ -341,3 +349,73 @@ def apply_flat(layers, x: Tensor, dtype: Optional[torch.dtype] = None,
     else:
         x_tail = xf.reshape(c, n, h, w).transpose(0, 1)
     return apply_layers(layers[i:], x_tail, dtype)
+
+
+def conv_cnhw(x: Tensor, conv: nn.Conv2d) -> Tensor:
+    """``conv`` on ``(C, N, H, W)`` ``x`` as one matrix product
+    ``(O, kh*kw*C) @ (kh*kw*C, N*Hs*Ws)`` over the stacked taps at stride
+    1 (the transposed im2col of JAX's ``conv_cnhw``), in ``x``'s dtype
+    (bf16 operands with float32 sums and the output rounded to bf16, or
+    float32 as the caller's TF32 flags allow: ``utils.float32_math``
+    keeps it float32); a stride-2 conv then keeps the even rows and
+    columns, as JAX's one-hot selection products do exactly; the bias is
+    added last in ``x``'s dtype.  The stacked taps hold kh*kw*C*N*Hs*Ws
+    values, as JAX materializes them."""
+    c, n, h, w = x.shape
+    kh, kw = conv.kernel_size
+    pad = conv.padding[0]
+    stride = conv.stride[0]
+    if conv.padding != (pad, pad) or stride not in (1, 2) \
+            or conv.stride != (stride, stride):
+        raise ValueError(f"conv_cnhw: stride {conv.stride} padding "
+                         f"{conv.padding}: symmetric padding and stride 1 "
+                         "or 2 only")
+    if pad:
+        x = F.pad(x, (pad, pad, pad, pad))
+    hs, ws = h + 2 * pad - kh + 1, w + 2 * pad - kw + 1
+    taps = torch.cat([x[:, :, r:r + hs, s:s + ws]
+                      for r in range(kh) for s in range(kw)], 0)
+    o = conv.out_channels
+    wt = conv.weight.permute(0, 2, 3, 1).reshape(o, kh * kw * c).to(x.dtype)
+    y = (wt @ taps.reshape(kh * kw * c, n * hs * ws)).reshape(o, n, hs, ws)
+    if stride == 2:
+        y = y[:, :, ::2, ::2]
+    if conv.bias is not None:
+        y = y + conv.bias.to(x.dtype)[:, None, None, None]
+    return y
+
+
+def apply_cnhw(layers, x: Tensor, dtype: Optional[torch.dtype] = None
+               ) -> Tensor:
+    """Eval-only layer stack in the transposed ``(C, N, H, W)`` layout,
+    the JAX package's ``_apply_spec_cnhw``: takes and returns NCHW like
+    :func:`apply_layers`; ``dtype`` (bf16) is the activations' dtype.
+    Convs through :func:`conv_cnhw`; eval BatchNorm as (x - mean) *
+    1/sqrt(var + eps), the statistics computed in float32 and rounded to
+    the activations' dtype; dropout the identity; the global average over
+    (H, W); a 2x2 max pool of stride 2 (the only pool it takes, as in
+    JAX)."""
+    x = x.transpose(0, 1)
+    if dtype is not None:
+        x = x.to(dtype)
+    for layer in layers:
+        if isinstance(layer, nn.Conv2d):
+            x = conv_cnhw(x, layer)
+        elif isinstance(layer, nn.BatchNorm2d):
+            inv = torch.rsqrt(layer.running_var + layer.eps)
+            x = ((x - layer.running_mean.to(x.dtype)[:, None, None, None])
+                 * inv.to(x.dtype)[:, None, None, None])
+        elif isinstance(layer, (nn.ReLU, nn.Tanh, nn.ELU)):
+            x = layer(x)
+        elif isinstance(layer, Dropout):
+            pass
+        elif isinstance(layer, nn.AdaptiveAvgPool2d) \
+                and layer.output_size in (1, (1, 1)):
+            x = x.mean(dim=(2, 3), keepdim=True)
+        elif (isinstance(layer, nn.MaxPool2d)
+              and (layer.kernel_size, layer.stride, layer.padding)
+              == (2, 2, 0)):
+            x = F.max_pool2d(x, 2, 2)
+        else:
+            raise TypeError(f"apply_cnhw: layer {layer!r}")
+    return x.transpose(0, 1)

@@ -42,6 +42,16 @@ def _maxpool3x3(x: Tensor) -> Tensor:
     return out
 
 
+def nms2d(x: Tensor, threshold: float = 0.0) -> Tensor:
+    """2-D max-pool-equality NMS on (H, W): x where it is (within 1e-5 of)
+    the max of its 3x3 neighbourhood and, for a ``threshold`` above 1e-5,
+    above it; else 0 (the reference's NMS2d)."""
+    keep = (x - _maxpool3x3(x) + NMS_EPS) > 0
+    if threshold > NMS_EPS:
+        keep = keep & (x > threshold)
+    return keep.to(x.dtype) * x
+
+
 def nms3d_center(low: Tensor, cur: Tensor, high: Tensor) -> Tensor:
     """cur where it is (within 1e-5 of) the max of its 27-neighbourhood
     across the three scale slices, else 0."""

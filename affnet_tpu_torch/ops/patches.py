@@ -237,6 +237,24 @@ def extract_patches_batched(imgs: Tensor, lafs: Tensor, ps: int = 32,
         align_corners=align_corners)
 
 
+def extract_patches(img: Tensor, lafs: Tensor, ps: int = 32,
+                    align_corners: bool = False,
+                    use_kernel: bool = True) -> Tensor:
+    """(N, PS, PS) bilinear patches of the (H, W) image at normalized
+    (N, 2, 3) LAFs, zeros outside (the reference's extract_patches): the
+    image as a one-level buffer (:func:`batched_tables` of one image)
+    through kernel B4 on the card, its plain version for a CPU tensor or
+    ``use_kernel=False``."""
+    from .cuda_patches import extract_patches_pyramid
+    h, w = img.shape
+    _, offs, hs, ws = batched_tables(1, h, w, img.device)
+    lvl = torch.zeros(lafs.shape[0], dtype=torch.int32, device=img.device)
+    patches, _ = extract_patches_pyramid(img, lafs, lvl, offs, hs, ws, ps=ps,
+                                         align_corners=align_corners,
+                                         use_kernel=use_kernel)
+    return patches
+
+
 def select_levels_for_lafs(dlafs: Tensor, sigma_pixdist_table: Tensor,
                            ps: int) -> Tensor:
     """The flat level whose blur (sigma * pix_dist) is closest to

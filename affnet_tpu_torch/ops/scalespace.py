@@ -204,3 +204,12 @@ def build_flat_pyramid(img: Tensor, plan: PyramidPlan, py2: bool = False,
                    st.taps, pad_to=wmax, down=level(st.down),
                    zero_src_pad=st.zero_src_pad, use_kernel=use_kernel)
     return pyr, buf
+
+
+def build_pyramid(img: Tensor, plan: PyramidPlan, py2: bool = False,
+                  use_kernel: bool = True) -> List[List[Tensor]]:
+    """The pyramid as ``pyr[octave][level]``, each an (h, w) view of the
+    row-padded buffer that :func:`build_flat_pyramid` writes (its blurs
+    are kernel B1 on the card): the JAX package's ``build_pyramid``."""
+    pyr, _ = build_flat_pyramid(img, plan, py2=py2, use_kernel=use_kernel)
+    return [list(octave.unbind(0)) for octave in pyr]

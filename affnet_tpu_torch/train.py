@@ -9,9 +9,9 @@ batch over ranks through :mod:`.parallel`.  The AffNet step
    patch (kernel B5 forward), then a 32x32 center crop; 'Rot'-free archs
    share the anchor's rotation with the positive.  Triplet batches add the
    negative's warp, with its own rotation;
-2. the net (AffNetFast) in train mode on the crops: BatchNorm on batch
-   statistics, its running statistics updated in place (anchor pass, then
-   positive, then negative), dropout from the step's generator;
+2. the net (any AffNet of the zoo) in train mode on the crops: BatchNorm
+   on batch statistics, its running statistics updated in place (anchor
+   pass, then positive, then negative), dropout from the step's generator;
 3. the full patches re-warped by the predicted shapes at PS 32, all of
    them in one B5 forward launch (its LAF cotangent is one B5 backward
    launch): 3 forward and 1 backward launches per pair step, 4 and 1 per
@@ -62,10 +62,10 @@ from .augmentation import (draw_fliprot, fliprot_core,
                            random_warp_lafs, warp_and_crop,
                            warp_by_predicted_transform)
 from .models import HardNet, HardTFeatNet, params_from_jax, params_to_jax
-from .models.cnn import init_params, l2norm
+from .models.cnn import l2norm
 from .models.sift import sift_describe
 from .ops.batched_sampler import sample_batched
-from .utils import MetricsLogger, float32_math
+from .utils import MetricsLogger, check_finite, float32_math
 
 Tensor = torch.Tensor
 
@@ -194,6 +194,7 @@ def _sgd_step(state: TrainState, cfg: TrainConfig, loss_fn
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
     loss, descr_dist = loss_fn()
+    check_finite(loss, "the training loss")
     loss.backward()
     parallel.average_gradients(state.model.parameters())
     lr = lr_at_step(state.step, cfg)
@@ -462,8 +463,9 @@ def train_loop(model: nn.Module, dataset, cfg: TrainConfig,
     (``log_dir/metrics.jsonl``).  ``mode``: ``affnet`` (the default),
     ``orinet`` (also ``ori=True``) or ``descriptor`` (the model is the
     descriptor under training; no frozen descriptor).  The net starts from
-    ``start_params`` (a JAX-layout tree) or from the orthogonal init
-    seeded by ``cfg.seed`` at the net's ``init_gain``.  A resume at
+    ``start_params`` (a JAX-layout tree) or from the net's seeded init
+    (``PatchNet.init``: the orthogonal init seeded by ``cfg.seed`` at the
+    net's ``init_gain``, its ``last_gain`` and ``last_bias``).  A resume at
     ``start_epoch`` continues the global step (and so the LR), and seeds
     the step generator with ``cfg.seed + 7919 * start_epoch``.  After each
     epoch's checkpoint, ``eval_fn(model, epoch)`` runs with the net in
@@ -487,8 +489,7 @@ def train_loop(model: nn.Module, dataset, cfg: TrainConfig,
     dev = resolve_device(device)
     model.to(dev)
     if start_params is None:
-        init_params(model, torch.Generator().manual_seed(cfg.seed),
-                    gain=model.init_gain)
+        model.init(torch.Generator().manual_seed(cfg.seed))
     else:
         model.load_state_dict(params_from_jax(start_params))
     model.train()

@@ -1,5 +1,5 @@
-"""Small utilities: the precision policy, stage timers, profiler traces
-and the training metrics log.
+"""Small utilities: the precision policy, stage timers, profiler traces,
+the NaN check and the training metrics log.
 
 Counterparts of ``affnet_tpu/utils.py``:
 
@@ -8,6 +8,9 @@ Counterparts of ``affnet_tpu/utils.py``:
     element per tensor, as JAX's ``fence`` reads one with ``device_get``)
   - :func:`profiler_trace` — a ``torch.profiler`` trace context writing a
     Chrome trace (JAX's writes a TensorBoard trace)
+  - :func:`debug_nans` — a NaN or inf produced in a forward or backward
+    raises (JAX's over ``jax_debug_nans``); :func:`check_finite` is the
+    check the public entry points make on what they return
   - :class:`MetricsLogger` — structured JSONL metrics (a copy of JAX's)
 """
 
@@ -19,6 +22,7 @@ import os
 import time
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 
@@ -114,6 +118,59 @@ def profiler_trace(log_dir: str):
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(
         log_dir, f"{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+
+
+_DEBUG_NANS = False
+
+
+@contextlib.contextmanager
+def debug_nans(enable: bool = True):
+    """NaN-check debug mode on (or, ``enable=False``, off) for a block, as
+    JAX's sets ``jax_debug_nans``: autograd's anomaly mode (a backward
+    that produces a NaN raises, naming the forward op that recorded it)
+    and :func:`check_finite` on what the port's public entry points return
+    (every zoo net's and YiNet's forward, the extractor's call, the
+    training steps' loss), which raises ``FloatingPointError`` on a NaN or
+    inf.  The previous state of both is restored on exit.  Off, nothing
+    is checked and nothing waits for the card."""
+    global _DEBUG_NANS
+    prev = (_DEBUG_NANS, torch.is_anomaly_enabled(),
+            torch.is_anomaly_check_nan_enabled())
+    _DEBUG_NANS = enable
+    torch.autograd.set_detect_anomaly(enable, check_nan=enable)
+    try:
+        yield
+    finally:
+        _DEBUG_NANS = prev[0]
+        torch.autograd.set_detect_anomaly(prev[1], check_nan=prev[2])
+
+
+def check_finite(tree, where: str = "output"):
+    """``tree`` (a tensor, a numpy array, or a dict, list or tuple of them)
+    unchanged; under :func:`debug_nans`, raise ``FloatingPointError`` if a
+    floating-point leaf holds a NaN or inf (this reads the card)."""
+    if not _DEBUG_NANS:
+        return tree
+    leaves = list(_tensors(tree)) + list(_arrays(tree))
+    for leaf in leaves:
+        ok = (bool(torch.isfinite(leaf).all()) if torch.is_tensor(leaf)
+              else bool(np.isfinite(leaf).all()))
+        if not ok:
+            raise FloatingPointError(f"debug_nans: {where} holds a NaN or "
+                                     "inf")
+    return tree
+
+
+def _arrays(tree):
+    if isinstance(tree, np.ndarray) and np.issubdtype(tree.dtype,
+                                                      np.floating):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _arrays(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _arrays(v)
 
 
 class MetricsLogger:

@@ -187,6 +187,40 @@ Phases, each timed and each fatal on failure:
                resized patches), the tasks' metrics against the CPU's, ms
                per patch.  No kernel of the port runs there (cuDNN nets,
                plain SIFT), as in JAX.
+ 19. zoo    — the rest of the JAX package: (a) the 16 REGISTRY nets
+               (shipped weights where weights/ has them, else the seeded
+               init) and YiNet at full width on the flagship's 3000
+               shape-site patches of the first image (PS 16 and 28 cut at
+               the same LAFs by extract_patches: B4 on the image as a
+               one-level buffer, bit-identical to its plain version and
+               timed at each size): nchw on the card against the CPU, flat
+               (B7) and cnhw against nchw, each within 2e-5 of the
+               output's scale, and TF32 nchw and cnhw past that limit;
+               device ms per net under each layout, cnhw's peak memory;
+               B7 at the new layer shapes (AffNetFast4's no-BN6 conv and
+               ReLU, HardNetNarELU's six biased ELU layers) against its
+               plain version at phase 10's tolerance; B7's launches over
+               the 16 nets under flat.  (b) The flagship under
+               eval_layout("cnhw") on the images: B1-B4 and no B7,
+               keypoints against phase 3's nchw runs (at most 10 on one
+               side, at most 10 common ones whose LAF moved past 1e-2 px,
+               the others' descriptors within 5e-3), ms per image beside
+               nchw's, peak device memory; the HesAffNet program (phase
+               11's defaults) under cnhw on one image: its peak memory
+               (the stacked taps of some 34k patches), keypoints and ms
+               against nchw.  (c) train_affnet --arch
+               AffNetFast52RotUp (per-pair rotations) at batch 1024,
+               HardNegC, lr 0.005, 13 steps against phase 16's HardNet on
+               its dataroot: as phase 16's runs; B5's PS 64 warp of the
+               positives, each with its own rotation, bit-identical to
+               its plain version; one step against the plain path on the
+               card; PosDist falling on a fixed batch; the per-epoch eval
+               hook once (eval_graf --shape-arch AffNetFast52RotUp on the
+               card).  (d) export_model for each of the 16 names on the
+               card (reloaded within 1e-5 of the eager net).  (e) HPatches
+               with HardNetNarELU (seeded weights in an npz) on phase 18's
+               patches, card against CPU, us per patch.  (f) debug_nans:
+               a NaN patch raises inside it and not outside.
 
 Kernel times ("ms") are device times from torch.profiler (CUPTI): the
 card's busy time per call, without the host's launch overhead.  The log
@@ -194,11 +228,11 @@ also prints each kernel's median per-call time between CUDA events, which
 includes that overhead.
 
 Phases 1-9 run the nets' nchw layout; phases 10-12 set the flat layout
-per call (models/cnn.py eval_layout), so AFFNET_EVAL_CONV need not be
-set.  The package's entry points (the extractor, the training step, the
-shape optimizer) run with TF32 off for cuDNN convolutions and matmuls
-(affnet_tpu_torch.utils.float32_math), so the nets compute in float32 like
-the JAX reference.  Imports torch, numpy and the standard library only.
+and phase 19 each layout per call (models/cnn.py eval_layout), so
+AFFNET_EVAL_CONV need not be set.  The package's entry points (the
+extractor, the training step, the shape optimizer) run with TF32 off for
+cuDNN convolutions and matmuls (affnet_tpu_torch.utils.float32_math), so
+the nets compute in float32 like the JAX reference.  Imports torch, numpy and the standard library only.
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it the per-kernel JSON.
 """
@@ -229,10 +263,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from affnet_tpu_torch import (export, hpatches, keypoints, load_pretrained,
                               match, parallel)
-from affnet_tpu_torch.cli import (describe_keypoints, eval_graf, extract_geom,
-                                  hesaffbaum, hesaffnet, match_demo,
-                                  optimize_shapes, pretrained,
-                                  profile_pipeline, train_affnet,
+from affnet_tpu_torch.cli import (describe_keypoints, eval_graf,
+                                  export_model, extract_geom, hesaffbaum,
+                                  hesaffnet, match_demo, optimize_shapes,
+                                  pretrained, profile_pipeline,
+                                  shipped_or_seeded, train_affnet,
                                   train_descriptor, train_orinet)
 from affnet_tpu_torch.data import (DevicePairDataset, PairDataset,
                                    TripletDataset, synthetic_pairs_from_image,
@@ -240,9 +275,11 @@ from affnet_tpu_torch.data import (DevicePairDataset, PairDataset,
 from affnet_tpu_torch.detector import (DetectorConfig,
                                        ScaleSpaceAffinePatchExtractor)
 from affnet_tpu_torch.kernels import build
-from affnet_tpu_torch.models import (AffNetFast, HardNet, HardTFeatNet,
-                                     OriNetFast32, SIFTNet, params_from_jax,
-                                     params_to_jax)
+from affnet_tpu_torch.models import (REGISTRY, AffNetFast,
+                                     AffNetFast52RotUp, HardNet,
+                                     HardTFeatNet, OriNetFast32, SIFTNet,
+                                     YiNet, params_from_jax, params_to_jax)
+from affnet_tpu_torch.models.convert import save_params_npz
 from affnet_tpu_torch.io_formats import read_ells, write_ells
 from affnet_tpu_torch.models import cnn
 from affnet_tpu_torch.models.cnn import init_params
@@ -256,6 +293,7 @@ from affnet_tpu_torch.ops import (EXTRACTION_KERNELS, FAST_EXTRACTION_KERNELS,
 from affnet_tpu_torch.ops.conv_flat import conv_layer_plain, out_extent
 from affnet_tpu_torch.ops.nms import M_CAND, ROW_S, masked_topk
 from affnet_tpu_torch.ops.patches import (base_lin, batched_tables,
+                                          extract_patches,
                                           extract_patches_batched,
                                           extract_patches_from_flat_pyramid,
                                           laf_cotangent_replay)
@@ -269,7 +307,7 @@ from affnet_tpu_torch.train import (TrainConfig, draw_affnet_lafs,
                                     make_affnet_train_step, make_descriptor,
                                     make_orinet_train_step, orinet_lafs,
                                     tilt_for_epoch, train_loop)
-from affnet_tpu_torch.utils import float32_math
+from affnet_tpu_torch.utils import debug_nans, float32_math
 from scripts.profile_detect_stage import stage_profile
 
 H, W = 1080, 1920
@@ -316,29 +354,58 @@ def pretrained_nets():
             pretrained(HardTFeatNet(), "HardTFeatNet"))
 
 
-def time_ms(fn, reps: int, tries: int = 3) -> float:
+def _device_records(fn, reps: int) -> list:
+    """The card's records (kernels, copies, memsets; CUPTI through
+    torch.profiler) of ``reps`` calls of fn() in one profiler window.  On
+    the card's machine the profiler misses records at the start of a
+    window (2-6 launches), so the window opens with 16 spin kernels and a
+    synchronize, and only the records after the last spin kernel seen
+    count."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(16):
+            torch.cuda._sleep(50000)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    recs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and "Activity Buffer" not in e.name]
+    spins = [e.time_range.end for e in recs if "spin" in e.name]
+    start = max(spins) if spins else float("-inf")
+    return [e for e in recs if "spin" not in e.name
+            and e.time_range.start >= start]
+
+
+def time_ms(fn, reps: int, tries: int = 6) -> float:
     """Device time of one fn() call in ms: the summed intervals of its
     kernels and copies on the card (CUPTI through torch.profiler) over reps
     warmed calls, divided by reps.  Host time between launches is not
-    counted.  The profiler has returned a window without any device
-    record on the card's machine, so an empty window is measured again, up
-    to ``tries`` times, and logged."""
+    counted.  On the card's machine the profiler has dropped records (an
+    empty window; 14-18 of 20 launches, the first of a window, which
+    _device_records leaves to spin kernels), so a window counts only when
+    its record count is a whole multiple of reps, no window of the call
+    held more, and a second window held as many: the time is theirs.
+    Other windows are logged and measured again, up to ``tries`` windows;
+    then the run fails.  No record is estimated."""
     fn()
     torch.cuda.synchronize()
-    for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and "Activity Buffer" not in e.name)
-        if us > 0:
-            return us / reps / 1e3
-        log(f"time_ms: the profiler saw no device time (try {attempt + 1} "
-            f"of {tries})")
-    raise AssertionError("the profiler saw no device time")
+    seen = []
+    for _ in range(tries):
+        recs = _device_records(fn, reps)
+        seen.append((len(recs), sum(e.time_range.end - e.time_range.start
+                                    for e in recs)))
+        n = max(k for k, _ in seen)
+        full = [us for k, us in seen if k == n]
+        if n > 0 and n % reps == 0 and len(full) >= 2:
+            if len(seen) > 2:
+                log(f"time_ms: device records per window "
+                    f"{[k for k, _ in seen]} for {reps} calls; the "
+                    f"{len(full)} windows of {n} count")
+            return sum(full) / len(full) / reps / 1e3
+    raise AssertionError(f"time_ms: no two windows of {reps} calls held "
+                         f"the same whole number of records per call: "
+                         f"{[k for k, _ in seen]}")
 
 
 def event_median_ms(fn, reps: int) -> float:
@@ -1130,12 +1197,14 @@ def check_plain_step(state, desc_fn, cfg, batch,
     return res
 
 
-def check_posdist_descent(desc_fn, cfg, batch, seed) -> list:
+def check_posdist_descent(desc_fn, cfg, batch, seed,
+                          net_cls=AffNetFast) -> list:
     """tests/test_train.py:81-101 at full width: the same batch and the
-    same generator each step, PosDist, lr 5e-5: the loss must fall."""
+    same generator each step, PosDist, lr 5e-5: the loss must fall.  The
+    net is ``net_cls`` from its seeded init (``cfg.arch`` names it)."""
     cfg = dataclasses.replace(cfg, loss="PosDist", lr=5e-5)
     dev = batch[0].device
-    net = init_params(AffNetFast(), torch.Generator().manual_seed(seed))
+    net = net_cls().init(torch.Generator().manual_seed(seed))
     state = init_state(net.to(dev).train(), cfg)
     step_fn = make_affnet_train_step(desc_fn, cfg)
     got = [float(step_fn(state, batch,
@@ -1769,15 +1838,17 @@ def check_conv_calls(run, names, reps: int = 20) -> dict:
     """``run()`` under the flat layout, with each B7 call it makes held
     against the plain version and timed (check_conv) on the inputs the
     path gives it, before the path goes on with the kernel's output.  The
-    i-th call is ``names[i]``."""
-    res = {}
+    i-th call is ``names[i]``; a call named None is not checked."""
+    res, calls = {}, []
     orig = cnn.conv_flat
 
     def spy(x, w, bias, img_hw, pad, act, stride, use_kernel=True):
-        i = len(res)
+        i = len(calls)
         require(i < len(names), f"more B7 calls than the layers {names}")
-        res[names[i]] = check_conv(names[i], x, w, bias, img_hw, pad, act,
-                                   stride, reps)
+        calls.append(names[i])
+        if names[i] is not None:
+            res[names[i]] = check_conv(names[i], x, w, bias, img_hw, pad,
+                                       act, stride, reps)
         return orig(x, w, bias, img_hw, pad, act, stride,
                     use_kernel=use_kernel)
 
@@ -1787,7 +1858,7 @@ def check_conv_calls(run, names, reps: int = 20) -> dict:
             run()
     finally:
         cnn.conv_flat = orig
-    require(list(res) == list(names), f"B7 calls {list(res)}, expected "
+    require(calls == list(names), f"B7 calls {calls}, expected "
             f"{list(names)}")
     return res
 
@@ -2824,8 +2895,7 @@ def run_trainer(kind: str, main, argv: list, net_cls, log_dir: str,
             f"trainer {kind}{tag}: losses {losses}")
     trained = {k: v.cpu() for k, v in state.model.state_dict().items()
                if v.is_floating_point()}
-    init = init_params(net_cls(), torch.Generator().manual_seed(0),
-                       gain=net_cls.init_gain).state_dict()
+    init = net_cls().init(torch.Generator().manual_seed(0)).state_dict()
     for name, val in trained.items():
         require(bool(torch.isfinite(val).all()), f"{kind}: {name} not finite")
         require(not torch.equal(val, init[name]), f"{kind}: {name} did not "
@@ -3348,6 +3418,444 @@ def phase_hpatches(device, seed: int) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the zoo, the layouts and the rest of the JAX package
+# ---------------------------------------------------------------------------
+
+ZOO_CPU_PATCHES = 512
+# B7 calls of a flat pass: the trunk's six layers; AffNetFast4's sixth is
+# a no-BN6 conv and ReLU, HardNetNarELU's six are biased ELU layers.
+NOBN6_CALLS = [None] * 5 + ["nobn6"]
+NARELU_CALLS = [f"narelu{i}" for i in range(1, 7)]
+# The flagship under cnhw against nchw (phase 3's outputs): keypoints only
+# on one side, common keypoints whose LAF moved past 1e-2 px (near-tie
+# swaps and gate flips, as the flat layout's), and the descriptor bound of
+# the others.
+CNHW_MAX_FLIPS, CNHW_MAX_MOVED, CNHW_DESC_ATOL = 10, 10, 5e-3
+# Card outputs against float32 nchw, times max(1, max |output|).  On an
+# H100 (PERF.md) the float32 differences (CPU, flat, cnhw) read at most
+# 1.2e-5 (OriNetFast's flat angles, YiNet's against the CPU), 1.4e-6 in
+# the AffNet family; with TF32 on, nchw and cnhw differ by 2.9e-5 or more
+# (AffNetFast2Par; 3e-4 to 1.6e-2 outside the AffNet family).  Each run
+# checks both sides.
+ZOO_OUT_RTOL = 2e-5
+
+
+def zoo_net(name: str, device):
+    """``REGISTRY[name]`` as export_model takes it (shipped weights where
+    they fit, else the seeded init), in eval mode on ``device``."""
+    return shipped_or_seeded(name)[0].to(device).eval()
+
+
+def zoo_inputs(det, img) -> dict:
+    """The flagship's 3000 shape-site patches of one image (PS 32, B4 on
+    the pyramid), and at the same LAFs the image's own patches at PS 16
+    and 28 (``extract_patches``: B4 on the image as a one-level buffer);
+    with the LAFs."""
+    with torch.inference_mode():
+        p = det._plan(*img.shape)
+        cand = det._multiscale_detect(img, p)
+        lafs = torch.cat([det.cfg.mr_size * cand["lafs"][:, :, 0:2],
+                          cand["lafs"][:, :, 2:]], dim=2).contiguous()
+        p32, _ = cuda_patches.extract_patches_pyramid(
+            cand["flat"], lafs, cand["ext_level"], *p.tables, ps=32)
+        out = {32: p32, "lafs": lafs}
+        for ps in (16, 28):
+            out[ps] = extract_patches(img, lafs, ps=ps)
+    return out
+
+
+def _max_err(a, b) -> float:
+    return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+
+def _zoo_call(net, x, layout="nchw", tf32=False):
+    """A function that runs net(x) on the card under ``layout`` in float32,
+    or with TF32 on for cuDNN convolutions and CUDA matmuls (float32_math
+    restores the flags after it)."""
+    def fn():
+        with cnn.eval_layout(layout), torch.inference_mode(), float32_math():
+            if tf32:
+                torch.backends.cudnn.allow_tf32 = True
+                torch.backends.cuda.matmul.allow_tf32 = True
+            return net(x)
+    return fn
+
+
+def check_zoo_net(name, net, x) -> dict:
+    """One net on ``x`` on the card: nchw against the CPU on the first
+    ZOO_CPU_PATCHES patches, flat (B7) and cnhw against nchw on all, each
+    within ZOO_OUT_RTOL of the output's scale (max(1, max |nchw|)); as a
+    control, nchw and cnhw with TF32 on must differ from float32 nchw by
+    more than that, so the limit tells float32 from TF32; device ms per
+    call under each layout; cnhw's peak device memory."""
+    def run(layout):
+        return _zoo_call(net, x, layout)
+
+    outs = {layout: run(layout)() for layout in ("nchw", "flat", "cnhw")}
+    cpu = copy.deepcopy(net).cpu()
+    with torch.inference_mode(), float32_math():
+        ref_cpu = cpu(x[:ZOO_CPU_PATCHES].cpu())
+    ref = outs["nchw"]
+    limit = ZOO_OUT_RTOL * max(1.0, float(ref.abs().max()))
+    errs = dict(cpu=_max_err(ref[:ZOO_CPU_PATCHES], ref_cpu),
+                flat=_max_err(outs["flat"], ref),
+                cnhw=_max_err(outs["cnhw"], ref))
+    tf32 = {layout: _max_err(_zoo_call(net, x, layout, tf32=True)(), ref)
+            for layout in ("nchw", "cnhw")}
+    require(bool(torch.isfinite(ref).all()), f"zoo {name}: not finite")
+    for k, e in errs.items():
+        require(e <= limit, f"zoo {name}: {k} against nchw max |diff| {e} "
+                f"(limit {limit})")
+    for k, e in tf32.items():
+        require(e > limit, f"zoo {name}: {k} with TF32 within the limit "
+                f"({e} <= {limit}): the check cannot tell it from float32")
+    ms = {layout: time_ms(run(layout), 5) for layout in outs}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run("cnhw")()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"zoo {name} ({tuple(x.shape)}): device ms nchw {ms['nchw']:.4f} "
+        f"flat {ms['flat']:.4f} cnhw {ms['cnhw']:.4f}; cnhw peak "
+        f"{peak / 2 ** 20:.1f} MiB above the inputs; max |diff| to nchw: "
+        f"CPU {errs['cpu']:.3g}, flat {errs['flat']:.3g}, cnhw "
+        f"{errs['cnhw']:.3g} (limit {limit:.3g}); TF32 controls: nchw "
+        f"{tf32['nchw']:.3g}, cnhw {tf32['cnhw']:.3g}")
+    return dict(ms=ms, errs=errs, tf32=tf32, peak=peak)
+
+
+def phase_zoo_nets(det, img, device, seed) -> dict:
+    """19a: every REGISTRY net and YiNet at full width on the flagship's
+    shape-site patches; B4 at the extract_patches site and B7 at the new
+    layer shapes against their plain versions; B7's launches when every
+    net runs flat once."""
+    t = time.perf_counter()
+    inp = zoo_inputs(det, img)
+    lafs = inp["lafs"]
+    n = lafs.shape[0]
+    h, w = img.shape
+    _, offs, hs, ws = batched_tables(1, h, w, device)
+    level = torch.zeros(n, dtype=torch.int32, device=device)
+    # B4 at the sizes the path cuts (PS 16 and 28 run the generic
+    # instance of patches.cu), on the path's own LAFs.
+    res = {"sites": {ps: check_patches(f"extract_ps{ps}", img, lafs, level,
+                                       (offs, hs, ws), ps=ps)
+                     for ps in (16, 28)}}
+    nets = {name: zoo_net(name, device) for name in REGISTRY}
+    res["nets"] = {name: check_zoo_net(name, net, inp[net.ps])
+                   for name, net in nets.items()}
+    yinet = YiNet().init(torch.Generator().manual_seed(seed)).to(device)
+    ya = _zoo_call(yinet, inp[28])()
+    with torch.inference_mode(), float32_math():
+        ya_cpu = copy.deepcopy(yinet).cpu()(inp[28][:ZOO_CPU_PATCHES].cpu())
+    yerr = _max_err(ya[:ZOO_CPU_PATCHES], ya_cpu)
+    ytf32 = _max_err(_zoo_call(yinet, inp[28], tf32=True)(), ya)
+    limit = ZOO_OUT_RTOL * max(1.0, float(ya.abs().max()))
+    require(bool(torch.isfinite(ya).all()) and yerr <= limit < ytf32,
+            f"YiNet: card against CPU {yerr}, TF32 control {ytf32}, limit "
+            f"{limit}")
+    yms = time_ms(_zoo_call(yinet, inp[28]), 5)
+    res["yinet"] = dict(ms=yms, err=yerr, tf32=ytf32)
+    log(f"zoo YiNet ({tuple(inp[28].shape)}): device ms {yms:.4f}; card "
+        f"against CPU max |diff| {yerr:.3g} rad (limit {limit:.3g}); TF32 "
+        f"control {ytf32:.3g}")
+    # B7 at the new layer shapes, against its plain version (phase 10's
+    # tolerance), on the nets' own flat passes.
+    convs = {}
+    for name, calls in (("AffNetFast4", NOBN6_CALLS),
+                        ("HardNetNarELU", NARELU_CALLS)):
+        convs.update(check_conv_calls(functools.partial(
+            _net_pass, nets[name], inp[32]), calls, reps=10))
+    for r in convs.values():
+        log_conv(r)
+    res["convs"] = convs
+    # The path: every net once under flat, the counts from 0.
+    reset_launch_counts()
+    for name, net in nets.items():
+        with cnn.eval_layout("flat"), torch.inference_mode(), float32_math():
+            net(inp[net.ps])
+    res["patches"] = {}
+    for ps in (16, 28):
+        before = launch_counts()["patches"]
+        extract_patches(img, lafs, ps=ps)
+        res["patches"][ps] = launch_counts()["patches"] - before
+    torch.cuda.synchronize()
+    res["counts"] = launch_counts()
+    log(f"zoo path launches (16 nets flat, extract_patches at PS 16 and "
+        f"28): {json.dumps(res['counts'])}; B4 by PS "
+        f"{json.dumps(res['patches'])}")
+    require(res["counts"]["conv"] > 0
+            and all(k == 1 for k in res["patches"].values()),
+            f"zoo path: launches {res['counts']}, B4 by PS {res['patches']}")
+    log(f"phase zoo nets wall_s: {time.perf_counter() - t:.3f}")
+    return res
+
+
+def phase_cnhw_extraction(det, imgs, nchw_outs) -> dict:
+    """19b: the flagship (bench.py:65-69 settings, float32) under
+    eval_layout("cnhw") on the images: B1-B4 launched and no B7, the
+    outputs' checks, keypoints against phase 3's nchw runs (CNHW_*), ms
+    per image beside nchw's in the same call, peak device memory."""
+    t = time.perf_counter()
+    run = cnn.eval_layout("cnhw")(functools.partial(det, describe=True))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs = [run(img) for img in imgs]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    log(f"cnhw extraction launches ({len(imgs)} images): "
+        f"{json.dumps(counts)}")
+    require(all(counts[k] > 0 for k in EXTRACTION_KERNELS)
+            and counts["conv"] == counts["conv_bf16"] == 0,
+            f"cnhw extraction: launches {counts}")
+    worst = dict(flips=0, moved=0, desc=0.0)
+    for i, (out, ref) in enumerate(zip(outs, nchw_outs)):
+        check_outputs(out, i)
+        fl = keypoint_flips(out, ref)
+        common, ia, ib = np.intersect1d(out["orig_idx"], ref["orig_idx"],
+                                        return_indices=True)
+        dl = np.abs(out["lafs"][ia] - ref["lafs"][ib]).reshape(
+            len(common), -1).max(axis=1)
+        still = dl <= 1e-2
+        dd = float(np.abs(out["descs"][ia][still] - ref["descs"][ib][still])
+                   .max())
+        moved = int((~still).sum())
+        log(f"image {i} (cnhw): against nchw {fl[0]} / {fl[1]} keypoints "
+            f"on one side only; {moved} of {len(common)} common keypoints' "
+            f"LAFs moved past 1e-2 px (max {dl.max():.3g}); descriptors of "
+            f"the others max |diff| {dd:.3g}")
+        require(max(fl) <= CNHW_MAX_FLIPS and moved <= CNHW_MAX_MOVED
+                and dd <= CNHW_DESC_ATOL, f"cnhw image {i}: flips {fl}, "
+                f"moved {moved}, descriptors {dd}")
+        worst = dict(flips=max(worst["flips"], *fl),
+                     moved=max(worst["moved"], moved),
+                     desc=max(worst["desc"], dd))
+    per_cnhw, per_nchw = time_per_image(
+        [run, functools.partial(det, describe=True)], imgs)
+    res = dict(counts=counts, ms=float(np.median(per_cnhw)),
+               ms_nchw=float(np.median(per_nchw)), peak=peak, worst=worst)
+    log(f"cnhw_ms_per_image: median {res['ms']:.3f} (all "
+        f"{[round(x, 3) for x in per_cnhw]}); nchw median "
+        f"{res['ms_nchw']:.3f} (all {[round(x, 3) for x in per_nchw]}); "
+        f"cnhw peak device memory {peak / 2 ** 30:.3f} GiB")
+    res["program"] = check_program_cnhw(imgs[0], det.device)
+    log(f"phase cnhw extraction wall_s: {time.perf_counter() - t:.3f}")
+    return res
+
+
+def check_program_cnhw(img, device) -> dict:
+    """The HesAffNet program at its defaults (phase 11's) under cnhw on one
+    1080p image: its peak device memory (the stacked taps of some 34k
+    patches), keypoints against nchw (phase 11's bound on flips), ms per
+    image beside nchw's, 2 passes each."""
+    det = hesaffnet.make_extractor(th=PROGRAM_TH, max_keypoints=PROGRAM_CAP,
+                                   do_ori=True, device=device)
+    runs = [functools.partial(cnn.eval_layout(layout)(
+        hesaffnet.image_to_ells), det, do_ori=True)
+        for layout in ("cnhw", "nchw")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ells, out = runs[0](img)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    _, ref = runs[1](img)
+    n = len(ells)
+    fl = keypoint_flips(out, ref)
+    require(n > 0 and np.isfinite(ells).all()
+            and max(fl) <= 5 * max(2, 2 * n // 1000),
+            f"program under cnhw: {n} regions, {fl} differ from nchw")
+    per_cnhw, per_nchw = time_per_image(runs, [img])
+    res = dict(ms=float(np.median(per_cnhw)), ms_nchw=float(np.median(
+        per_nchw)), peak=peak, n=n, n_detected=int(out["n_detected"]))
+    log(f"hesaffnet under cnhw (one image, {res['n_detected']} survivors, "
+        f"{n} regions): {fl[0]} / {fl[1]} keypoints on one side only "
+        f"against nchw; ms per image median {res['ms']:.3f} (all "
+        f"{[round(x, 3) for x in per_cnhw]}), nchw {res['ms_nchw']:.3f} "
+        f"(all {[round(x, 3) for x in per_nchw]}); peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB")
+    return res
+
+
+def phase_rot_trainer(trainers, device, seed: int, tmp: str) -> dict:
+    """19c: train_affnet.main --arch AffNetFast52RotUp at batch 1024,
+    HardNegC, lr 0.005, 13 steps against phase 16's HardNet checkpoint on
+    its dataroot (run_trainer); B5's PS 64 warp of the positives, each
+    with its own rotation, bit-identical to its plain version; one step
+    against the plain path on the card; PosDist falling on a fixed batch;
+    then the per-epoch eval hook once (eval_graf's main with --shape-arch
+    AffNetFast52RotUp on the card, the fixture image and its homography
+    warp as the graf pair)."""
+    t = time.perf_counter()
+    arch = "AffNetFast52RotUp"
+    hardnet = ["--descriptor", "HardNet", "--desc-weights",
+               trainers["descriptor"]["ckpt"]]
+    argv = ["--dataroot", trainers["root"]] + hardnet + [
+        "--arch", arch, "--loss", "HardNegC", "--lr", "0.005"]
+    res = run_trainer("affnet", train_affnet.main, argv, AffNetFast52RotUp,
+                      os.path.join(tmp, "rot"), tag=f" {arch}")
+    state = res["state"]
+    pairs = next(iter(DevicePairDataset(PairDataset(
+        trainers["patches"], trainers["labels"], n_pairs=TRAINER_BATCH,
+        batch_size=TRAINER_BATCH, seed=seed + 3), device).batches()))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    _, lafs_p = draw_affnet_lafs(TRAINER_BATCH, tilt_for_epoch(0), gen,
+                                 shared_rot=False)
+    site = check_batched_fwd(pairs[1], lafs_p.contiguous(), 64)
+    site["name"] = "batched_fwd_perpair_ps64"
+    desc_params, _ = load_checkpoint(trainers["descriptor"]["ckpt"])
+    desc_fn = make_descriptor("HardNet", desc_params, device)
+    cfg = TrainConfig(arch=arch, descriptor="HardNet", loss="HardNegC",
+                      lr=0.005, batch_size=TRAINER_BATCH,
+                      n_pairs=TRAINER_STEPS * TRAINER_BATCH, epochs=1)
+    ps = check_plain_step(state, desc_fn, cfg, pairs)
+    log(f"trainer {arch}: plain-path step on the card: loss "
+        f"{ps['loss']:.7f} vs {ps['loss_plain']:.7f}; max |diff| / max "
+        f"|value|: grads {ps['grads']:.3g}, params {ps['params']:.3g}; "
+        f"BN statistics max |diff| {ps['stats']:.3g}")
+    descent = check_posdist_descent(desc_fn, cfg, pairs, seed,
+                                    AffNetFast52RotUp)
+    log(f"trainer {arch}: PosDist on a fixed batch {descent}")
+    res.update(site=site, plain_step=ps, descent=descent,
+               hook=check_rot_eval_hook(state.model, res["ckpt"], device,
+                                        seed, tmp))
+    log(f"phase rot trainer wall_s: {time.perf_counter() - t:.3f}")
+    return res
+
+
+def check_rot_eval_hook(model, ckpt, device, seed, tmp) -> dict:
+    """train_affnet's per-epoch hook (make_eval_fn, the program's argv)
+    with the trained net in eval mode: eval_graf's main on the card with
+    --shape-arch AffNetFast52RotUp and the epoch's checkpoint; the graf
+    pair is the 640x800 fixture and its seeded homography warp (arrays:
+    the card's machine has no PIL to read PNGs)."""
+    img = np.load(os.path.join(FIXTURES, "detector_golden_fullres.npz"))[
+        "img"].astype(np.float32)
+    view2, Hm = warp_homography(torch.from_numpy(img).to(device), seed)
+    graf = os.path.join(tmp, "graf")
+    os.makedirs(graf)
+    np.savetxt(os.path.join(graf, "H1to3p"), Hm)
+    arrays = {"img1.png": img, "img3.png": view2.cpu().numpy()}
+    args = train_affnet.build_parser().parse_args(
+        ["--arch", "AffNetFast52RotUp", "--no-vis", "--device", str(device)])
+    log_dir = os.path.join(tmp, "rot_hook")
+    os.makedirs(log_dir)
+    eval_fn = train_affnet.make_eval_fn(args, log_dir, lambda c: [
+        "--descriptor", "SIFT", "--shape-arch", args.arch,
+        "--shape-weights", c, "--graf-dir", graf])
+    calls = []
+    real_main, real_load = eval_graf.main, eval_graf.load_gray
+
+    def spy(argv):
+        reset_launch_counts()
+        out = real_main(argv)
+        torch.cuda.synchronize()
+        calls.append(dict(argv=list(argv), out=out, counts=launch_counts()))
+        return out
+
+    eval_graf.main = spy
+    eval_graf.load_gray = lambda f: arrays[os.path.basename(f)]
+    model.eval()
+    try:
+        eval_fn(model, 0)
+    finally:
+        eval_graf.main, eval_graf.load_gray = real_main, real_load
+        model.train()
+    (c,) = calls
+    require(c["argv"][c["argv"].index("--shape-arch") + 1]
+            == "AffNetFast52RotUp" and all(c["counts"][k] > 0
+                                           for k in EXTRACTION_KERNELS),
+            f"rot eval hook: {c}")
+    log(f"eval hook (train_affnet --arch AffNetFast52RotUp, epoch 0): "
+        f"eval_graf {' '.join(c['argv'][:-2])}: tentatives, true, ratio "
+        f"{c['out']}; launches {json.dumps(c['counts'])}")
+    return c
+
+
+def phase_export_all(device, tmp) -> dict:
+    """19d: export_model's main for each REGISTRY name on the card: the
+    reloaded program's output on 3 seeded patches within 1e-5 of the eager
+    net's (the program's own check, which exits otherwise)."""
+    t = time.perf_counter()
+    res = {}
+    for name in REGISTRY:
+        out, ref = export_model.main([name, os.path.join(tmp, "exp",
+                                                         f"{name}.pt2")])
+        res[name] = _max_err(out, ref)
+        require(out.is_cuda and res[name] <= export_model.ROUND_TRIP_ATOL,
+                f"export {name}: {res[name]}")
+    log(f"export_model on the card, 16 names: reloaded against eager max "
+        f"|diff| {max(res.values()):.3g} ({json.dumps(res)}); wall_s "
+        f"{time.perf_counter() - t:.3f}")
+    return res
+
+
+def phase_narelu_hpatches(device, seed: int, tmp: str) -> dict:
+    """19e: make_descriptor_fn("HardNetNarELU") with seeded weights
+    written to an npz (convert.save_params_npz) on phase 18's patches, on
+    the card and on the CPU: descriptors within 1e-5, µs per patch on the
+    card (host clock, descriptors back on the host)."""
+    seqs = hpatches_sequences(seed)
+    allp = np.concatenate([s.ref for s in seqs] + [
+        w for s in seqs for w in s.warped.values()])
+    path = os.path.join(tmp, "narelu.npz")
+    save_params_npz(REGISTRY["HardNetNarELU"]().init(
+        torch.Generator().manual_seed(seed)).state_dict(), path)
+    fn, ps = hpatches.make_descriptor_fn("HardNetNarELU", path,
+                                         device=device)
+    fn_cpu, _ = hpatches.make_descriptor_fn("HardNetNarELU", path,
+                                            device="cpu")
+    fn(allp[:64])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn(allp)
+    ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(got - fn_cpu(allp)).max())
+    require(ps == 32 and got.shape == (len(allp), 64) and err <= 1e-5,
+            f"hpatches HardNetNarELU: {got.shape}, card vs CPU {err}")
+    log(f"hpatches HardNetNarELU: {len(allp)} patches in {ms:.3f} ms on the "
+        f"card ({ms / len(allp) * 1e3:.3f} us per patch); card vs CPU "
+        f"max |diff| {err:.3g}")
+    return dict(ms=ms, us_per_patch=ms / len(allp) * 1e3, err=err)
+
+
+def check_debug_nans(device) -> None:
+    """19f: inside debug_nans a forward given a NaN patch raises; outside
+    it the same forward returns NaNs and does not raise."""
+    net = zoo_net("AffNetFast", device)
+    x = torch.rand((4, 32, 32), device=device)
+    x[2, 5, 5] = float("nan")
+    with debug_nans():
+        try:
+            net(x)
+        except FloatingPointError as e:
+            raised = str(e)
+        else:
+            raised = None
+    out = net(x)
+    require(raised is not None and not bool(torch.isfinite(out).all()),
+            f"debug_nans: raised {raised!r}")
+    log(f"debug_nans: inside, a NaN patch raises ({raised}); outside, the "
+        "forward returns NaNs")
+
+
+def phase_zoo(det, imgs, main_outs, trainers, device, seed, tmp) -> dict:
+    """Phase 19: 19a-19f."""
+    t = time.perf_counter()
+    res = {"nets": phase_zoo_nets(det, torch.from_numpy(imgs[0]).to(device),
+                                  device, seed)}
+    res["cnhw"] = phase_cnhw_extraction(det, imgs, main_outs)
+    res["rot"] = phase_rot_trainer(trainers, device, seed, tmp)
+    res["export"] = phase_export_all(device, tmp)
+    res["hpatches"] = phase_narelu_hpatches(device, seed, tmp)
+    check_debug_nans(device)
+    log(f"phase zoo wall_s: {time.perf_counter() - t:.3f}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3449,9 +3957,12 @@ def run_phases(args) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         trainers = phase_trainers(device, args.seed, tmp)
         par = phase_parallel(imgs, trainers, device, args.seed, tmp)
-    phase_hpatches(device, args.seed)
+        phase_hpatches(device, args.seed)
+        zoo = phase_zoo(det, imgs, main_res["outs"], trainers, device,
+                        args.seed, tmp)
     for r in (baum["site"], onepass["refine"], apps["site"],
-              *trainers["sites"].values(), *par["sites"].values()):
+              *trainers["sites"].values(), *par["sites"].values(),
+              *zoo["nets"]["sites"].values(), zoo["rot"]["site"]):
         log(f"kernel {r['name']} {r['shape']}: max_abs_err {r['err']:.3g} "
             f"ms {r['ms']:.4f} event_median_ms {r['event_ms']:.4f} "
             f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']} "
@@ -3561,6 +4072,27 @@ def run_phases(args) -> int:
                      "affnet_tpu/ops/pallas_patches.py:"
                      + ("702" if bwd else "94 via :665")
                      + " (affnet_tpu/parallel.py:55-78)"))
+    # Phase 19: B4 at the extract_patches site (the image as a one-level
+    # buffer) at PS 16 and 28, each with the zoo path's B4 launches at
+    # that size; B7 at the new layer shapes
+    # (AffNetFast4's no-BN6 layer, HardNetNarELU's biased ELU layers),
+    # with the zoo path's B7 launches (16 nets under flat); B5 at the
+    # per-pair-rotation warp of the positives, with the AffNetFast52RotUp
+    # run's PS 64 launches.
+    for ps, r in zoo["nets"]["sites"].items():
+        rows.append((r, zoo["nets"]["patches"][ps],
+                     "affnet_tpu_torch/csrc/patches.cu",
+                     "affnet_tpu/ops/pallas_patches.py:94 (the sampler of "
+                     "affnet_tpu/ops/patches.py:148)"))
+    for r in zoo["nets"]["convs"].values():
+        rows.append((r, zoo["nets"]["counts"]["conv"],
+                     "affnet_tpu_torch/csrc/conv.cu",
+                     "affnet_tpu/ops/pallas_conv.py:77"))
+    rows.append((zoo["rot"]["site"],
+                 zoo["rot"]["counts"]["batched_fwd_ps64"],
+                 "affnet_tpu_torch/csrc/patches.cu",
+                 "affnet_tpu/ops/pallas_patches.py:94 via :665 "
+                 "(affnet_tpu/train.py:204,213)"))
     kernels = [{
         "name": r["name"], "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,

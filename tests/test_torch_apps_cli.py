@@ -198,10 +198,14 @@ def test_eval_graf_matches_jax(files, monkeypatch, capsys):
     assert abs(got[1] - ref[1]) <= allowed
     assert abs(got[2] - ref[2]) <= allowed / ref[0] + 1e-4
     # evaluate_pair's indices agree with its counts; --shape-arch refuses
-    # nets the port's zoo lacks.
+    # a net that is not an AffNet, and an AffNet without weights (none
+    # are shipped but AffNetFast's) unless --shape-weights gives them.
     n_tent, n_true, ratio, t1, t2, in1 = seen[0]
     assert (n_tent, n_true, ratio) == got
     assert len(t1) == len(t2) == n_tent and len(in1) == n_true
-    with pytest.raises(SystemExit, match="AffNetFast"):
+    with pytest.raises(SystemExit, match="AffNetFast52RotUp"):
+        eval_graf.main(args + ["--shape-arch", "OriNetFast32", "--device",
+                               "cpu"])
+    with pytest.raises(SystemExit, match="no weights are shipped"):
         eval_graf.main(args + ["--shape-arch", "AffNetFast4", "--device",
                                "cpu"])

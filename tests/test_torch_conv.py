@@ -498,12 +498,13 @@ def test_apply_flat_feeds_each_layer_its_real_channels():
 
 
 def test_eval_layout_refuses_unknown_layouts():
-    """The port has the "nchw" and "flat" layouts: any other value, JAX's
-    "cnhw" too, is refused by ``eval_layout`` (the layout in force is kept)
-    and by the import that reads ``AFFNET_EVAL_CONV``."""
+    """The layouts are "nchw", "cnhw" and "flat": any other value, one
+    that neither package has ("nhwc"), is refused by ``eval_layout`` (the
+    layout in force is kept) and by the import that reads
+    ``AFFNET_EVAL_CONV``."""
     before = cnn.EVAL_CONV_LAYOUT
-    with pytest.raises(ValueError, match="cnhw"):
-        with cnn.eval_layout("cnhw"):
+    with pytest.raises(ValueError, match="nhwc"):
+        with cnn.eval_layout("nhwc"):
             pass
     assert cnn.EVAL_CONV_LAYOUT == before
     seen = cnn.eval_layout("flat")(lambda: cnn.EVAL_CONV_LAYOUT)
@@ -511,9 +512,25 @@ def test_eval_layout_refuses_unknown_layouts():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     run = subprocess.run(
         [sys.executable, "-c", "import affnet_tpu_torch.models.cnn"],
+        cwd=root, env={**os.environ, "AFFNET_EVAL_CONV": "nhwc"},
+        capture_output=True, text=True, timeout=300)
+    assert run.returncode != 0 and "nhwc" in run.stderr
+
+
+def test_eval_layout_and_env_take_cnhw():
+    """``eval_layout("cnhw")`` and ``AFFNET_EVAL_CONV=cnhw`` are taken."""
+    before = cnn.EVAL_CONV_LAYOUT
+    with cnn.eval_layout("cnhw"):
+        assert cnn.EVAL_CONV_LAYOUT == "cnhw"
+    assert cnn.EVAL_CONV_LAYOUT == before
+    assert "cnhw" in cnn.EVAL_CONV_LAYOUTS
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, "-c", "from affnet_tpu_torch.models import cnn; "
+         "print(cnn.EVAL_CONV_LAYOUT)"],
         cwd=root, env={**os.environ, "AFFNET_EVAL_CONV": "cnhw"},
         capture_output=True, text=True, timeout=300)
-    assert run.returncode != 0 and "cnhw" in run.stderr
+    assert run.returncode == 0 and run.stdout.split() == ["cnhw"], run.stderr
 
 
 def test_flat_layout_needs_no_grad_mode():

@@ -1039,3 +1039,57 @@ def test_trainer_step_kernels_vs_plain(dev, kind):
     for k in sp:
         tol = 1e-6 if "running" in k else 1e-5 * float(sp[k].abs().max())
         assert float((sk[k] - sp[k]).abs().max()) <= tol, k
+
+
+@pytest.mark.parametrize("name", sorted(zoo.REGISTRY))
+def test_zoo_net_layouts_on_card(dev, name):
+    """Each REGISTRY net (seeded init) on the card: flat (B7, launched for
+    every net but OriNetFast's, whose 4x4 head and 16x16 maps it also
+    takes) and cnhw against nchw within 1e-4 of the output's scale, nchw
+    against the CPU within the same."""
+    net = zoo.REGISTRY[name]().init(torch.Generator().manual_seed(1))
+    x = torch.rand((64, net.ps, net.ps), generator=torch.Generator()
+                   .manual_seed(2))
+    with torch.inference_mode(), float32_math():
+        ref_cpu = net(x)
+        net = net.to(dev)
+        xd = x.to(dev)
+        ref = net(xd)
+        outs = {}
+        for layout in ("flat", "cnhw"):
+            before = cuda_conv.launches
+            with cnn.eval_layout(layout):
+                outs[layout] = net(xd)
+            torch.cuda.synchronize()
+            if layout == "flat":
+                assert cuda_conv.launches > before
+    scale = max(1.0, float(ref.abs().max()))
+    for got in (ref_cpu.to(dev), *outs.values()):
+        assert float((got - ref).abs().max()) <= 1e-4 * scale
+
+
+def test_per_pair_rotation_step_kernels_vs_plain(dev):
+    """The AffNetFast52RotUp step (positives with their own rotations)
+    through B5 against the plain sampler on the card: loss rtol 1e-5,
+    gradients within 1e-3 of each tensor's largest magnitude."""
+    from affnet_tpu_torch import train
+    cfg = train.TrainConfig(arch="AffNetFast52RotUp", descriptor="pixels",
+                            loss="HardNegC", batch_size=32)
+    gen = torch.Generator().manual_seed(0)
+    batch = tuple(torch.rand((32, 64, 64), generator=gen).to(dev)
+                  for _ in range(2))
+    runs = []
+    for use_kernels in (True, False):
+        net = zoo.AffNetFast52RotUp().init(torch.Generator().manual_seed(3))
+        state = train.init_state(net.to(dev).train(), cfg)
+        step = train.make_affnet_train_step(
+            train.make_descriptor("pixels", device=dev), cfg, use_kernels)
+        m = step(state, batch, torch.Generator(device=dev).manual_seed(5),
+                 3.0)
+        runs.append((float(m["loss"]), {n: p.grad.clone() for n, p in
+                                        net.named_parameters()}))
+    (lk, gk), (lp, gp) = runs
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for n in gp:
+        assert float((gk[n] - gp[n]).abs().max()) <= 1e-3 * float(
+            gp[n].abs().max()), n

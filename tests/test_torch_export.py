@@ -81,3 +81,36 @@ def test_export_bakes_weights_and_keeps_the_mode(tmp_path):
             p.add_(1.0)
     np.testing.assert_allclose(export.load_from_file(path)(x).numpy(),
                                ref.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,weights", [
+    ("OriNetFast32", "shipped"), ("HardNetNarELU", "npz"),
+    ("AffNetFast52RotUp", None)])
+def test_export_model_cli(tmp_path, capsys, name, weights):
+    """``export_model.main`` on the CPU: the shipped weights (OriNetFast32
+    takes OriNetFast's), ``--weights`` (JAX's seeded init written by the
+    JAX package), or the seeded init with JAX's note; the reloaded output
+    on 3 seeded patches equals the eager net's (the program's own check)
+    and, with JAX's weights, the JAX net's within atol 1e-5."""
+    from affnet_tpu.models.convert import save_params_npz
+    from affnet_tpu_torch.cli import export_model
+    out_path = str(tmp_path / "out" / f"{name}.pt2")
+    argv = [name, out_path, "--device", "cpu"]
+    jnet = jmodels.REGISTRY[name]
+    params = None
+    if weights == "npz":
+        params = jnet.init(jax.random.PRNGKey(5))
+        save_params_npz(params, str(tmp_path / "w.npz"))
+        argv += ["--weights", str(tmp_path / "w.npz")]
+    elif weights == "shipped":
+        params = jload("OriNetFast")
+    got, ref = export_model.main(argv)
+    printed = capsys.readouterr().out
+    assert f"{name} -> {out_path}" in printed
+    assert ("no pretrained weights" in printed) == (weights is None)
+    assert got.shape[0] == 3 and torch.equal(got, ref)
+    if params is not None:
+        x = np.random.RandomState(0).rand(3, jnet.ps, jnet.ps).astype(
+            np.float32)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jnet(params, x)),
+                                   rtol=0, atol=1e-5)

@@ -126,3 +126,63 @@ def test_hessian_and_nms_pieces_match_jax():
                     jnms.update_octave_map(jnp.asarray(octmap),
                                            jnp.asarray(nmsed))):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# The public helpers by their JAX names: nms2d, build_pyramid,
+# extract_patches
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("threshold", [0.0, 0.5])
+def test_nms2d_matches_jax(threshold):
+    """Equal outputs, ties within 1e-5 included (planted equal maxima)."""
+    x = np.random.RandomState(3).rand(19, 27).astype(np.float32)
+    x[5, 5] = x[5, 6] = 2.0
+    got = tnms.nms2d(torch.from_numpy(x), threshold).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jnms.nms2d(jnp.asarray(x), threshold)))
+    assert got[5, 5] == got[5, 6] == 2.0
+
+
+def test_build_pyramid_matches_jax():
+    """pyr[octave][level] with JAX's shapes, each a view of the flat
+    buffer, within the flat pyramid test's 1e-5."""
+    img = np.random.RandomState(4).rand(64, 96).astype(np.float32)
+    plan = tss.make_plan(64, 96, border=5)
+    ref = jss.build_pyramid(jnp.asarray(img), jss.make_plan(64, 96, border=5))
+    pyr = tss.build_pyramid(torch.from_numpy(img), plan)
+    assert [len(o) for o in pyr] == [len(o) for o in ref]
+    base = pyr[0][0].untyped_storage().data_ptr()
+    for got_o, ref_o in zip(pyr, ref):
+        for got, r in zip(got_o, ref_o):
+            assert tuple(got.shape) == r.shape
+            assert got.untyped_storage().data_ptr() == base
+            np.testing.assert_allclose(got.numpy(), np.asarray(r), atol=1e-5)
+
+
+@pytest.mark.parametrize("ps,align_corners", [(19, True), (32, False)])
+def test_extract_patches_matches_jax(ps, align_corners):
+    """Patches of one image at normalized LAFs, some reaching past the
+    border, against JAX's XLA sampler: atol 2.55e-3 grey levels, 1e-5 of
+    the 0-255 range (the same four-corner sum; XLA contracts multiply-adds
+    into FMAs where PyTorch rounds each product; measured 1.2e-3); no
+    kernel launch on the CPU."""
+    from affnet_tpu.ops import patches as jpatches
+    from affnet_tpu_torch.ops import launch_counts
+    from affnet_tpu_torch.ops import patches as tpatches
+    rng = np.random.RandomState(5)
+    img = (rng.rand(48, 64) * 255).astype(np.float32)
+    A = (rng.rand(9, 2, 2) - 0.5) * 0.4 + 0.2 * np.eye(2)
+    lafs = np.concatenate([A, rng.rand(9, 2, 1) * 1.2 - 0.1],
+                          2).astype(np.float32)
+    ref = np.asarray(jpatches.extract_patches(
+        jnp.asarray(img), jnp.asarray(lafs), ps=ps,
+        align_corners=align_corners))
+    before = launch_counts()
+    got = tpatches.extract_patches(torch.from_numpy(img),
+                                   torch.from_numpy(lafs), ps=ps,
+                                   align_corners=align_corners)
+    assert launch_counts() == before
+    assert got.shape == (9, ps, ps)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5 * 255)
+    assert (ref == 0).any()                 # some samples fell outside

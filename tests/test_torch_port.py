@@ -46,6 +46,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "import affnet_tpu_torch.cli.gen_ds, affnet_tpu_torch.losses\n"
         "import affnet_tpu_torch.augmentation, affnet_tpu_torch.models.zoo\n"
         "import affnet_tpu_torch.parallel, affnet_tpu_torch.hpatches\n"
+        "import affnet_tpu_torch.models.yinet\n"
+        "import affnet_tpu_torch.cli.export_model\n"
         "import affnet_tpu_torch.cli.eval_hpatches\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

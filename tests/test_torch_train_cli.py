@@ -27,6 +27,7 @@ from affnet_tpu.cli import eval_graf as jeval
 from affnet_tpu.cli import gen_ds as jgen_ds
 from affnet_tpu.cli import train_affnet as jtrain_affnet
 from affnet_tpu.cli import train_descriptor as jtrain_descriptor
+from affnet_tpu.models import zoo as jzoo
 from affnet_tpu_torch import data as tdata
 from affnet_tpu_torch.cli import (eval_graf, gen_ds, train_affnet,
                                   train_descriptor, train_orinet)
@@ -172,6 +173,57 @@ def test_train_affnet_cli(tmp_path, train_images, loss, descriptor, extra):
     assert epoch == 1 and set(jtree) == set(tree)
 
 
+def test_train_affnet_cli_takes_every_affnet(tmp_path, train_images,
+                                             monkeypatch):
+    """``--arch`` takes JAX's 11 AffNet names: AffNetFast52RotUp trains
+    (a "Rot" name: each positive drawn with its own rotation, its seeded
+    init with JAX's last bias), and its per-epoch eval passes it to
+    eval_graf's --shape-arch with the epoch's checkpoint; train_descriptor
+    --arch takes HardNetNarELU."""
+    from affnet_tpu_torch import train as ttrain
+    from affnet_tpu_torch.models import (REGISTRY, AffNet, AffNetFast52RotUp,
+                                         HardNetNarELU)
+    jaffnets = sorted(n for n in jzoo.REGISTRY if n.startswith("AffNet"))
+    assert len(jaffnets) == 11
+    assert sorted(n for n, c in REGISTRY.items()
+                  if issubclass(c, AffNet)) == jaffnets
+    draws = []
+    real_draw = ttrain.draw_affnet_lafs
+
+    def spy_draw(n, max_tilt, generator, shared_rot, negative=False):
+        draws.append(shared_rot)
+        return real_draw(n, max_tilt, generator, shared_rot, negative)
+
+    monkeypatch.setattr(ttrain, "draw_affnet_lafs", spy_draw)
+    evals = []
+    monkeypatch.setattr(eval_graf, "main", lambda argv: evals.append(argv))
+    argv = ["--synthetic", "--gen-classes", "24", "--gen-views", "3",
+            "--batch-size", "8", "--n-pairs", "16", "--epochs", "1",
+            "--arch", "AffNetFast52RotUp", "--no-vis"]
+    state, run_dir, recs = _run(train_affnet.main, argv, tmp_path / "aff")
+    assert isinstance(state.model, AffNetFast52RotUp) and state.step == 2
+    assert draws == [False, False]
+    assert np.isfinite([r["loss"] for r in recs]).all()
+    _moved_and_saved(state, run_dir, AffNetFast52RotUp)
+    ((eval_argv),) = evals
+    assert eval_argv[eval_argv.index("--shape-arch") + 1] \
+        == "AffNetFast52RotUp"
+    assert eval_argv[eval_argv.index("--shape-weights") + 1] == os.path.join(
+        run_dir, "checkpoint_0.npz")
+    real_pairs = tdata.synthetic_pairs_from_images
+    monkeypatch.setattr(     # the program passes JAX's 8192 classes
+        tdata, "synthetic_pairs_from_images",
+        lambda imgs, **kw: real_pairs(imgs, **{**kw, "n_classes": 40}))
+    state, run_dir, recs = _run(
+        train_descriptor.main, ["--synthetic", "--batch-size", "8",
+                                "--n-pairs", "16", "--epochs", "1",
+                                "--arch", "HardNetNarELU", "--no-eval"],
+        tmp_path / "desc")
+    assert isinstance(state.model, HardNetNarELU) and state.step == 2
+    assert np.isfinite([r["loss"] for r in recs]).all()
+    _moved_and_saved(state, run_dir, HardNetNarELU)
+
+
 def test_train_orinet_cli_on_a_dataset_dir(tmp_path):
     """train_orinet at its defaults (OriNetFast32, HardNet loss) on
     --dataroot: an npz cache and a .pt one, read as JAX reads them."""
@@ -204,14 +256,15 @@ def test_train_orinet_cli_on_a_dataset_dir(tmp_path):
     (train_orinet.main, ["--mesh", "4", "--device", "cuda"], "--mesh 4"),
     (train_descriptor.main, ["--mesh", "2", "--device", "cuda"],
      "CUDA cards are present"),
-    (train_affnet.main, ["--arch", "AffNetFast4"], "AffNetFast"),
+    (train_affnet.main, ["--arch", "AffNetFast7"], "AffNetFast52RotUp"),
     (train_affnet.main, ["--arch", "OriNetFast32"], "AffNet trainer"),
     (train_orinet.main, ["--arch", "AffNetFast"], "OriNetFast32"),
     (train_affnet.main, ["--descriptor", "HardNet"], "--desc-weights")])
 def test_refusals(tmp_path, main, argv, match):
     """--mesh N above the cards present (one card per rank) and nets the
-    port lacks never run; HardNet needs its weights, as in JAX.  ``argv``
-    comes last, so its ``--device`` wins."""
+    zoo lacks or that are not the trainer's kind never run; HardNet needs
+    its weights, as in JAX.  ``argv`` comes last, so its ``--device``
+    wins."""
     with pytest.raises(SystemExit, match=match):
         main(["--log-dir", str(tmp_path), "--device", "cpu"] + argv)
     assert not glob.glob(str(tmp_path / "*" / "checkpoint_*"))

@@ -36,6 +36,7 @@ from affnet_tpu.laf import get_normalized_affine_shape, rotation_matrix
 from affnet_tpu.models import AffNetFast as JAffNetFast
 from affnet_tpu.models import HardNet as JHardNet
 from affnet_tpu.models import OriNetFast32 as JOriNetFast32
+from affnet_tpu.models import zoo as jzoo
 from affnet_tpu.models.cnn import l2norm as j_l2norm
 from affnet_tpu.models.convert import load_pretrained as jax_load_pretrained
 from affnet_tpu.ops.patches import extract_patches_batched as j_batched
@@ -104,6 +105,9 @@ GRAD_OF_MAX = {
     "orinet-HardNet": 5e-2,  # (1.9e-2, 4.8e-2): HardNet's ReLUs in the
     #                          descriptor's backward
     "random_sampling": 1.5e-2,  # (7.9e-3, 5.2e-3): the triplet hinge
+    "per_pair_rotation": 3e-2,   # (2.6e-3, 1.7e-2): AffNetFast52RotUp
+    #                              from its init against TFeat (with HardNet
+    #                              as descriptor: 8.8e-2, 1.1e-1)
 }
 
 
@@ -313,6 +317,61 @@ def test_affnet_step_matches_jax(loss, descriptor):
              GRAD_OF_MAX.get(loss, 1e-3))
 
 
+def test_affnet_step_per_pair_rotation_matches_jax():
+    """AffNetFast52RotUp (a "Rot" name): the positives warped with their
+    own rotations (the ``shared_rot=False`` branch of
+    ``make_affnet_train_step``, which ``draw_affnet_lafs`` draws), its
+    no-BN6 trunk and its atan2 head, from JAX's seeded init with its last
+    bias, HardNegC against the shipped TFeat (the published pipeline's
+    descriptor); the descriptor step's gradient bound (the net from its
+    init moves as much under 1e-6 of anchor noise)."""
+    views = _patches(views=2, seed=6)
+    rng = np.random.RandomState(8)
+    lafs = [_tilt_lafs(rng, N, rng.uniform(-math.pi, math.pi, N)
+                       .astype(np.float32)) for _ in range(2)]
+    kw = dict(arch="AffNetFast52RotUp", batch_size=N, n_pairs=10_000_000,
+              epochs=20, lr=0.005, descriptor="TFeat", loss="HardNegC")
+    jcfg, cfg = jtrain.TrainConfig(**kw), train.TrainConfig(**kw)
+    jnet = jzoo.AffNetFast52RotUp
+    jdesc, tdesc = _descriptors("TFeat")
+    params = jnet.init(jax.random.PRNGKey(6))
+
+    def loss_fn(prm):
+        descs, state = [], prm
+        for x, laf in zip(views, lafs):
+            full = j_batched(jnp.asarray(x), jnp.asarray(laf), ps=64)
+            A, state = jnet.apply_with_state(state, full[:, 16:48, 16:48],
+                                             rng=None)
+            descs.append(jdesc(jaug.warp_by_predicted_transform(full, A,
+                                                                32)))
+        return jtrain.apply_loss("HardNegC", descs[0], descs[1]), state
+
+    (jl, np_last), jg = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    jstats, jnew = _sgd_and_stats(params, jg, np_last,
+                                  jtrain.init_momentum(params), 0, jcfg)
+    net = _net(REGISTRY["AffNetFast52RotUp"], params)
+    state = train.init_state(net, cfg)
+    m = train.affnet_step_core(state, tdesc, cfg,
+                               tuple(torch.from_numpy(x) for x in views),
+                               tuple(torch.from_numpy(x) for x in lafs))
+    _compare(net, m, jl, jg, jstats, jnew, params, jcfg,
+             GRAD_OF_MAX["per_pair_rotation"])
+    # The step's own draw takes this branch for a "Rot" name.
+    seen = []
+    real = train.draw_affnet_lafs
+    try:
+        train.draw_affnet_lafs = lambda *a, **k: seen.append(a[3]) or real(
+            *a, **k)
+        step = train.make_affnet_train_step(tdesc, cfg)
+        step(train.init_state(_net(REGISTRY["AffNetFast52RotUp"], params),
+                              cfg),
+             tuple(torch.from_numpy(x) for x in views),
+             torch.Generator().manual_seed(0), 3.0)
+    finally:
+        train.draw_affnet_lafs = real
+    assert seen == [False]
+
+
 def test_draw_affnet_lafs_negative_has_its_own_rotation():
     gen = torch.Generator().manual_seed(0)
     a, p, n = train.draw_affnet_lafs(64, 3.0, gen, shared_rot=True,
@@ -377,11 +436,13 @@ def test_apply_loss_new_names():
 
 
 def test_registry_names_the_ported_nets():
-    assert sorted(REGISTRY) == ["AffNetFast", "HardNet", "HardTFeatNet",
-                                "OriNetFast", "OriNetFast32"]
+    """The zoo holds JAX's 16 names; a name it lacks raises a KeyError
+    that names them."""
+    assert sorted(REGISTRY) == sorted(jzoo.REGISTRY)
+    assert len(REGISTRY) == 16
     assert isinstance(REGISTRY["OriNetFast32"](), OriNetFast32)
     with pytest.raises(KeyError, match="AffNetFast4.*HardTFeatNet"):
-        REGISTRY["AffNetFast4"]
+        REGISTRY["AffNetFast7"]
 
 
 # ---------------------------------------------------------------------------
